@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--genome-mbp 20] [--seed 7] [--workdir DIR]
+    python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--seed 7] [--workdir DIR]
 
 Phases, each fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
@@ -10,15 +10,32 @@ Phases, each fatal on failure (nothing is caught):
      the same CUDA tensors, bit for bit, at k=25 and k=37, on a fast-load
      table and a dense (load >= 0.85) one, 4 M lanes of present, absent and
      invalid keys; lookups/s of both from CUDA events;
-  4. the main path: the 20 Mbp race configuration (one contig with a
-     sub/del/ins error every ~4 kb, k=25, 2 passes + the QV pass, threshold
-     5, a table of 55,718,396 records) generated from --seed, written as
-     db.jf + asm.fa, and polished by jasper_tpu_torch.polish.runner on the
-     card. Checks: the probe kernel launched, the native repair queries are
-     bound, >= 99% of the injected errors repaired against the true genome,
-     QV after > QV before. Then the probe at the main path's shape (one 4 M
-     window tile of the draft against the race table), kernel vs plain, and
-     the tile's scan broken down by stage.
+  4. the runner path: a --genome-mbp slice of the race configuration (one
+     contig with a sub/del/ins error every ~4 kb, k=25, 2 passes + the QV
+     pass, threshold 5, a synthetic table of 55,718,396 records per 20 Mbp)
+     written as db.jf + asm.fa and polished by jasper_tpu_torch.polish.runner.
+     Checks: the probe kernel launched, the native repair queries are bound,
+     >= 99% of the injected errors repaired, QV after > QV before;
+  5. counting: the race reads (tools/race_reference.make_data, 40x of 250 bp,
+     --seed) are generated; the port's count_reads_to_host counts their first
+     40 Mbp on the card, held against an independent numpy count (distinct
+     keys and counts equal), the device-built table (K5) against the native
+     host-built one and K7 against the counts' histogram;
+  6. the main path, the driver from reads: jasper_tpu_torch.pipeline.cli
+     -a asm.fa -r reads.fq -k 25 -p 2 -t 1 -b 25000000 --device cuda on the
+     whole race input. Checks: the probe kernel launched (count reset just
+     before), the scanner took the device-built table, which equals the
+     host-built one, the native repair queries are bound, no counting step
+     peaked past the budget's lane multiple (count/counter.py), and at
+     20000 kb jasper_tpu's race20 results: 55,718,396 records, threshold 5,
+     QV 36.14958 -> 71.42679. Reports the stage seconds; the device ms of
+     every extraction, stage flush, ladder merge and table build (CUDA
+     events around the path's own calls), with the fastest full-size stage
+     flush split into its sorted_runs steps; the peak device memory of
+     every sorting ladder step against the resident lanes; and the share of
+     injected errors repaired. Then the probe at this path's shape (one 4
+     M-window tile of the draft against the counted table), kernel vs
+     plain, and the tile's scan broken down by stage.
 
 Ends with a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -28,8 +45,10 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -37,7 +56,11 @@ import time
 
 import numpy as np
 
-RACE_RECORDS = 55_718_396  # race20 table records (20 Mbp, k=25)
+RACE_RECORDS = 55_718_396  # race20 distinct 25-mers (race_artifacts/race20_tpu_run.log:8)
+RACE_KB = 20_000  # race20 genome (tools/race_reference.py make_data)
+RACE_QV = ("36.14958", "71.42679")  # race_artifacts/race20_result_r5.json
+RACE_RESIDENT = 234_880_352  # jasper_tpu's lanes after counting (run log :6)
+HERE = os.path.dirname(os.path.abspath(__file__))
 LANES = 1 << 22  # probe lanes per comparison = the scan tile
 M32 = 0xFFFFFFFF
 
@@ -287,7 +310,7 @@ def read_fasta_one(path: str) -> bytes:
     return b"".join(line for line in lines[1:] if not line.startswith(b">"))
 
 
-def phase_main(args, rng, device, workdir: str) -> dict:
+def phase_runner(args, rng, device, workdir: str) -> dict:
     import torch
 
     from jasper_tpu_torch.io.jf import write_jf
@@ -347,9 +370,7 @@ def phase_main(args, rng, device, workdir: str) -> dict:
         "passes": rep.engine.passes, "runner_total_s": rep.total_seconds,
         "wall_s": wall,
     }
-    log("main path " + json.dumps(out))
-    out["_scanner"] = rep.scanner
-    out["_draft"] = draft
+    log("runner path " + json.dumps(out))
     return out
 
 
@@ -382,10 +403,340 @@ def phase_main_shape(scanner, draft: bytes, device, k: int = 25) -> dict:
     return res
 
 
+# -- phases 5-6: counting and the driver from reads --------------------------
+
+
+def race_data(workdir: str, race_kb: int, seed: int):
+    """tools/race_reference.make_data(race_kb, 40, seed): the repo's race
+    input (genome, a draft with a rotating sub/del/ins error every ~4 kb,
+    40x of 250 bp FASTQ reads with hotspot and 0.2% random errors). Returns
+    (asm, reads, genome bytes, error positions); the genome is make_data's
+    first draw from the seed."""
+    race_dir = os.path.join(workdir, "race")
+    os.makedirs(race_dir, exist_ok=True)
+    os.environ["JT_RACE_DIR"] = race_dir  # read when the module loads
+    spec = importlib.util.spec_from_file_location(
+        "race_reference", os.path.join(HERE, "tools", "race_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    asm, reads = mod.make_data(race_kb, 40, seed=seed)
+    n = race_kb * 1000
+    g = np.random.default_rng(seed).integers(0, 4, size=n).astype(np.uint8)
+    genome = np.frombuffer(b"ACGT", np.uint8)[g].tobytes()
+    log(f"race data: {race_kb} kb at 40x, {os.path.getsize(reads)} B of reads, "
+        f"generated in {time.perf_counter() - t0:.1f}s")
+    return asm, reads, genome, list(range(2000, n - 4000, 4000))
+
+
+def oracle_counts(fastq: str, k: int):
+    """Independent count: every canonical k-mer (packed, first base most
+    significant) of every read, windows split at N and at read boundaries,
+    np.unique with counts. Reads must share one length (the race's do)."""
+    with open(fastq, "rb") as f:
+        seqs = f.read().split(b"\n")[1::4]
+    L = len(seqs[0])
+    if any(len(q) != L for q in seqs):
+        raise ValueError("oracle_counts needs reads of one length")
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = [0, 1, 2, 3]
+    codes = lut[np.frombuffer(b"".join(seqs), np.uint8)].reshape(len(seqs), L)
+    n = L - k + 1
+    c = codes.astype(np.uint64)
+    fwd = np.zeros((len(seqs), n), np.uint64)
+    rc = np.zeros((len(seqs), n), np.uint64)
+    for p in range(k):
+        fwd = (fwd << np.uint64(2)) | (c[:, p : p + n] & np.uint64(3))
+        rc |= (np.uint64(3) - (c[:, p : p + n] & np.uint64(3))) << np.uint64(2 * p)
+    bad = np.concatenate([np.zeros((len(seqs), 1), np.int32),
+                          np.cumsum(codes > 3, axis=1, dtype=np.int32)], axis=1)
+    valid = (bad[:, k:] - bad[:, :n]) == 0
+    return np.unique(np.minimum(fwd, rc)[valid], return_counts=True)
+
+
+def phase_count(reads: str, device, card: str, k: int = 25,
+                n_reads: int = 160_000) -> dict:
+    """Phase 5: the port's count_reads_to_host on the card over the first
+    ~40 Mbp of the race reads, against oracle_counts; the device-built table
+    (K5) against the native host-built one, byte for byte; K7 against the
+    histogram of the counts."""
+    import torch
+
+    from jasper_tpu_torch.count.counter import count_reads_to_host
+    from jasper_tpu_torch.count.histogram import (
+        histogram_rows,
+        histogram_rows_from_counts,
+    )
+    from jasper_tpu_torch.table.kmer_table import table_from_numpy
+
+    head = os.path.join(os.path.dirname(reads), "reads_head.fq")
+    with open(reads, "rb") as src, open(head, "wb") as dst:
+        for _ in range(4 * n_reads):
+            dst.write(src.readline())
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    host, rkeys, rcounts, dev_tab = count_reads_to_host(
+        [head], k, device, hash_size_hint=max(os.path.getsize(head) // 10, 1024),
+        tlog=log)
+    torch.cuda.synchronize(device)
+    count_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    uniq, cnt = oracle_counts(head, k)
+    oracle_s = time.perf_counter() - t0
+    got = rkeys[:, 0].astype(np.uint64) | (rkeys[:, 1].astype(np.uint64) << np.uint64(32))
+    order = np.argsort(got)
+    if not (np.array_equal(got[order], uniq) and np.array_equal(rcounts[order], cnt)):
+        raise AssertionError(f"count != oracle: {len(got)} vs {len(uniq)} distinct")
+    if not torch.equal(dev_tab, table_from_numpy(host.tab, device)):
+        raise AssertionError("device-built table != host-built table")
+    rows = histogram_rows(dev_tab, k)
+    if rows != histogram_rows_from_counts(rcounts):
+        raise AssertionError("K7 histogram != histogram of the counts")
+    out = {"reads": n_reads, "read_bases": int(n_reads * 250), "k": k,
+           "distinct": int(len(rkeys)), "windows": int(cnt.sum()),
+           "table_bytes": int(host.tab.nbytes), "count_s": count_s,
+           "oracle_s": oracle_s, "peak_device_bytes": peak,
+           "k7_ms": cuda_ms(lambda: histogram_rows(dev_tab, k), 5), "card": card}
+    del host, rkeys, rcounts, dev_tab
+    torch.cuda.empty_cache()
+    log("count " + json.dumps(out))
+    return out
+
+
+def _event():
+    import torch
+
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+class EventLog:
+    """Wraps functions so each call records CUDA events around it (no
+    synchronise) and the lanes it was given: device times of the main path's
+    own calls, read after the run. Functions wrapped with step() are timed
+    only inside a stage flush, each flush's steps apart."""
+
+    def __init__(self):
+        self.calls: dict[str, list] = {}
+        self.flush_steps: list[list] = []  # per stage flush: (step, start, end)
+        self._in_flush = False
+
+    def wrap(self, name: str, fn, lanes_of, flush: bool = False):
+        calls = self.calls.setdefault(name, [])
+
+        def timed(*a, **kw):
+            if flush:
+                self.flush_steps.append([])
+                self._in_flush = True
+            s = _event()
+            out = fn(*a, **kw)
+            e = _event()
+            self._in_flush = False
+            calls.append((lanes_of(*a, **kw), s, e))
+            return out
+        return timed
+
+    def step(self, name: str, fn):
+        def timed(*a, **kw):
+            if not self._in_flush:
+                return fn(*a, **kw)
+            s = _event()
+            out = fn(*a, **kw)
+            self.flush_steps[-1].append((name, s, _event()))
+            return out
+        return timed
+
+    def summary(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        res = {}
+        for name, calls in self.calls.items():
+            ms = [(lanes, s.elapsed_time(e)) for lanes, s, e in calls]
+            big = max(ms, key=lambda t: t[0]) if ms else (0, 0.0)
+            res[name] = {"calls": len(ms), "total_ms": sum(t for _, t in ms),
+                         "largest_lanes": big[0], "largest_ms": big[1]}
+        # the steps of the fastest full-size stage flush; what no step
+        # covers (the concatenation of the stage, the gathers) is "other"
+        flushes = [(lanes, s.elapsed_time(e), steps) for (lanes, s, e), steps
+                   in zip(self.calls.get("stage_flush", []), self.flush_steps)]
+        if flushes:
+            full = max(f[0] for f in flushes)
+            at_full = [f for f in flushes if f[0] == full]
+            _lanes, total, steps = min(at_full, key=lambda f: f[1])
+            split: dict = {}
+            for name, s, e in steps:
+                if name == "sort pass":
+                    name += f" {sum(n.startswith(name) for n in split) + 1}"
+                split[name] = s.elapsed_time(e)
+            split["other (concat, gathers)"] = total - sum(split.values())
+            res["stage_flush_steps"] = {
+                "lanes": full, "flushes_at_this_size": len(at_full),
+                "totals_ms": [f[1] for f in at_full],
+                "fastest_total_ms": total, "fastest_steps_ms": split}
+        return res
+
+
+class PeakLog:
+    """Peak device memory of every ladder step that sorts (a push that
+    flushed the stage, and the finish with its table build), above the
+    memory allocated before the run, against the resident lanes that the
+    budget check of count/counter.py saw just before it. Their worst ratio,
+    in lanes of 8 * (W + 2) bytes, is the lane multiple the budget assumes."""
+
+    def __init__(self, device, k: int):
+        import torch
+
+        self.device = device
+        self.lane_bytes = 8 * ((2 * k + 31) // 32 + 2)
+        self.base = torch.cuda.memory_allocated(device)
+        self.rows: list[tuple] = []  # (step, resident lanes, bytes above base)
+        self.peak = 0
+
+    def wrap(self, name: str, fn):
+        import torch
+
+        def timed(acc, *a, **kw):
+            resident = acc.n_resident_lanes()
+            torch.cuda.reset_peak_memory_stats(self.device)
+            out = fn(acc, *a, **kw)
+            peak = torch.cuda.max_memory_allocated(self.device)
+            self.peak = max(self.peak, peak)
+            if name == "finish" or acc._staged == 0:  # a push that flushed
+                self.rows.append((name, resident, peak - self.base))
+            return out
+        return timed
+
+    def ratio(self, row) -> float:
+        return row[2] / (self.lane_bytes * max(row[1], 1))
+
+    def summary(self) -> dict:
+        worst = max(self.rows, key=self.ratio)
+        return {"worst_lane_multiple": self.ratio(worst), "at": worst[0],
+                "resident_lanes": worst[1], "bytes_above_base": worst[2],
+                "base_bytes": self.base, "lane_bytes": self.lane_bytes,
+                "per_step": [(n, r, b, self.ratio((n, r, b)))
+                             for n, r, b in self.rows]}
+
+
+def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
+                 full: bool, k: int = 25) -> dict:
+    """Phase 6: the port's CLI from reads as the race ran jasper_tpu
+    (tools/race_reference.py:180-182,214,244), every extraction, stage
+    flush (step by step), ladder merge and table build timed on the card as
+    it runs, and the peak memory of every sorting ladder step held against
+    the counting budget's lane multiple."""
+    import torch
+
+    from jasper_tpu_torch.count import counter
+    from jasper_tpu_torch.count import sorted_runs as sr
+    from jasper_tpu_torch.count.histogram import histogram_rows, read_histogram
+    from jasper_tpu_torch.pipeline import cli
+    from jasper_tpu_torch.table import build, probe
+    from jasper_tpu_torch.table.kmer_table import table_from_numpy
+    from jasper_tpu_torch.table.native_table import NativeTableQuery
+
+    wd = os.path.join(os.path.dirname(reads), "run")
+    events = EventLog()
+    peaks = PeakLog(device, k)
+    wraps = [
+        (counter, "extract_windows", lambda f: events.wrap(
+            "extract_windows", f, lambda codes, kk, partition=None: codes.shape[0])),
+        (sr, "flush_stage", lambda f: events.wrap(
+            "stage_flush", f, lambda kp, vp: sum(x.shape[0] for x in kp),
+            flush=True)),
+        (sr, "mix32", lambda f: events.step("mix32", f)),
+        (sr, "_sort_cols", lambda f: events.step("sort keys", f)),
+        (sr, "_sort_pass", lambda f: events.step("sort pass", f)),
+        (sr, "_run_lengths", lambda f: events.step("segment totals", f)),
+        (sr, "_compact", lambda f: events.step("compact", f)),
+        (sr.RunAccumulator, "_merge", lambda f: events.wrap(
+            "ladder_merge", f,
+            lambda self, a, b: 2 * max(a[0].shape[0], b[0].shape[0]))),
+        (build, "build_from_run", lambda f: events.wrap(
+            "build_from_run", f, lambda h, keys, counts, n_buckets: h.shape[0])),
+        (sr.RunAccumulator, "push_raw", lambda f: peaks.wrap("push", f)),
+        (counter, "_finish_to_table", lambda f: peaks.wrap("finish", f)),
+    ]
+    orig = [getattr(owner, name) for owner, name, _ in wraps]
+    for (owner, name, wrap), fn in zip(wraps, orig):
+        setattr(owner, name, wrap(fn))
+    torch.cuda.reset_peak_memory_stats(device)
+    probe.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
+                       "-b", "25000000", "--workdir", wd, "--device", str(device)])
+    finally:
+        for (owner, name, _), fn in zip(wraps, orig):
+            setattr(owner, name, fn)
+    wall = time.perf_counter() - t0
+    launches = probe.LAUNCHES
+    peak = max(peaks.peak, torch.cuda.max_memory_allocated(device))
+
+    stages = res["stages"]
+    msgs = [m for _, m in stages]
+    records = int(next(re.search(r"\((\d+) records\)", m).group(1)
+                       for m in msgs if m.startswith("count: run pull done")))
+    resident = int(next(re.search(r"\((\d+) resident", m).group(1)
+                        for m in msgs if m.startswith("count: device counting done")))
+    with open(os.path.join(wd, "threshold.txt")) as f:
+        thr = int(f.read())
+    polished = read_fasta_one(os.path.join(wd, "asm.fa.polished.fasta"))
+    scanner, counts = res["scanner"], res["counts"]
+    if launches <= 0:
+        raise AssertionError("the driver path never launched the probe kernel")
+    if not res["scan_table_from_count"]:
+        raise AssertionError("the scanner did not take the device-built table")
+    if not isinstance(counts._native, NativeTableQuery):
+        raise AssertionError(f"repair queries not on the native library: {counts._native!r}")
+    if not torch.equal(scanner.tab, table_from_numpy(counts.table.tab, device)):
+        raise AssertionError("device-built table != host-built table")
+    hist_rows = histogram_rows(scanner.tab, k)
+    if hist_rows != read_histogram(os.path.join(wd, f"jfhisto{k}.csv")):
+        raise AssertionError("K7 histogram of the table != jfhisto csv")
+    want = {"records": RACE_RECORDS, "threshold": 5,
+            "qv": list(RACE_QV)} if full else {}
+    got = {"records": records, "threshold": thr,
+           "qv": [res["q_before"], res["q_after"]]}
+    for key, val in want.items():
+        if got[key] != val:
+            raise AssertionError(f"race20 {key}: {got[key]} != {val}")
+    splits = [(m, t - (stages[i - 1][0] if i else 0.0))
+              for i, (t, m) in enumerate(stages)]
+    out = {"records": records, "threshold": thr, "q_before": res["q_before"],
+           "q_after": res["q_after"], "gates": "enforced" if full else "not at this size",
+           "repaired_share": repaired_share(genome, polished, errors),
+           "identical_to_genome": polished == genome,
+           "resident_lanes_after_count": resident,
+           "resident_lanes_jasper_tpu_tpu_run": RACE_RESIDENT,
+           "probe_launches": launches, "peak_device_bytes": peak,
+           "wall_s": wall, "stage_seconds_since_previous": splits,
+           "device_ms": events.summary(),
+           "k7_ms": cuda_ms(lambda: histogram_rows(scanner.tab, k), 5),
+           "table_bytes": int(scanner.tab.numel() * 4),
+           "count_peak_memory": peaks.summary(), "card": card}
+    log("driver path " + json.dumps(out))
+    worst = out["count_peak_memory"]["worst_lane_multiple"]
+    if worst > counter.PEAK_LANE_MULTIPLE:
+        raise AssertionError(
+            f"a counting step peaked at {worst:.3f} lanes per resident lane, past "
+            f"the budget's PEAK_LANE_MULTIPLE = {counter.PEAK_LANE_MULTIPLE}")
+    with open(asm, "rb") as f:
+        out["_draft"] = b"".join(f.read().split(b"\n")[1:])
+    out["_scanner"] = scanner
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome-mbp", type=float, default=20.0,
-                    help="genome length in Mbp (the table scales with it)")
+    ap.add_argument("--genome-mbp", type=float, default=5.0,
+                    help="phase 4: genome length in Mbp (the table scales with it)")
+    ap.add_argument("--race-kb", type=int, default=RACE_KB,
+                    help="phases 5-6: race genome length in kb (the gates on "
+                         "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--workdir", default=None,
                     help="scratch for db.jf/asm.fa/outputs (default "
@@ -398,7 +749,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     # outside a checkout this import fails and the script exits non-zero
-    from jasper_tpu_torch.table import _build, probe
+    from jasper_tpu_torch.table import _build
     from jasper_tpu_torch.utils.device import resolve_device
 
     t_all = time.perf_counter()
@@ -419,12 +770,15 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     probe_rows = phase_probe(rng, device, card)
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    workdir = args.workdir or os.path.join(here, ".smoke_work")
+    workdir = args.workdir or os.path.join(HERE, ".smoke_work")
     os.makedirs(workdir, exist_ok=True)
-    main_res = phase_main(args, rng, device, workdir)
-    shape = phase_main_shape(main_res.pop("_scanner"), main_res.pop("_draft"),
-                             device)
+    runner_res = phase_runner(args, rng, device, workdir)
+    torch.cuda.empty_cache()
+    asm, reads, genome, errors = race_data(workdir, args.race_kb, args.seed)
+    count_res = phase_count(reads, device, card)
+    drv = phase_driver(asm, reads, genome, errors, device, card,
+                       full=args.race_kb == RACE_KB)
+    shape = phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device)
     if not args.workdir:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -434,11 +788,14 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "jasper_tpu_torch/csrc/probe.cu",
         "replaces": "jasper_tpu/table/pallas_probe.py:73",
-        "launches": main_res["probe_launches"],
+        "launches": drv["probe_launches"],
         "max_abs_err": max_err,
         "ms": shape["ms"],
         "plain_ms": shape["plain_ms"],
     }]}
+    log(f"probe launches: runner path {runner_res['probe_launches']}, "
+        f"driver path {drv['probe_launches']}; count phase distinct "
+        f"{count_res['distinct']}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels))
     print(nvidia_smi_line())

@@ -5,12 +5,17 @@ module is held bit for bit against its ``jasper_tpu`` counterpart by the
 ``tests/test_torch_*.py`` parity suites. This package imports ``torch`` and
 never ``jax``; where it reuses a ``jasper_tpu`` module, that module is
 jax-free (``polish.engine``, ``polish.runner.polish_file``, ``io.jf``,
-``io.native_jf``, ``ops.kmer``, ``ops.codes``).
+``io.native_jf``, ``io.fastx``, ``ops.kmer``, ``ops.codes`` and the helpers
+of ``pipeline.driver``).
 
-The slice ported so far is the polish scan: ``.jf`` -> host table -> table on
-the device -> per-window counts through the hand-written CUDA bucket probe
-(``csrc/probe.cu``) -> the reference-exact host repair walk -> polished FASTA.
-Entry point: ``python -m jasper_tpu_torch.polish.runner``.
+Ported so far, on one device: counting from reads (count/: extraction,
+sorted runs in an LSM ladder, the waterfall build of the table on the
+device, records to the host table, histogram and `.jf`), the polish scan
+(table on the device -> per-window counts through the hand-written CUDA
+bucket probe, ``csrc/probe.cu`` -> the reference-exact host repair walk) and
+the driver around them, reads -> polished FASTA. Entry points:
+``bin/jasper-tpu-torch`` (``python -m jasper_tpu_torch.pipeline.cli``) and
+``python -m jasper_tpu_torch.polish.runner``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,82 @@
+"""Count histogram and polishing threshold, jax-free (counterpart of
+jasper_tpu/count/histogram.py:25-80, which imports jax at load).
+
+``histogram_rows_from_counts``, ``write_histogram``, ``read_histogram`` and
+``threshold_from_histogram`` are copies; ``histogram_rows`` reads a torch
+table (kernel K7, jasper_tpu/table/kmer_table.py:376 ``table_histogram``).
+Rows are what `jellyfish histo` prints: nonzero (bin, frequency) with
+low=1, high=10000, inc=1 and every count above high in bin 10001.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from jasper_tpu.ops.kmer import words_per_kmer
+
+from jasper_tpu_torch.ops.hashing import M32
+from jasper_tpu_torch.table.layout import ROW_U32, slot_words_for
+
+HISTO_HIGH = 10000
+
+
+def histogram_rows(tab: torch.Tensor, k: int, high: int = HISTO_HIGH
+                   ) -> list[tuple[int, int]]:
+    """Nonzero (col, freq) rows of the table's occupied slots: a bincount
+    of the counts column block (word-major rows: columns [W*S, (W+1)*S)),
+    clipped at high + 1, bin 0 (empty slots) dropped. Runs on the table's
+    device; only the high + 2 bins come back."""
+    W = words_per_kmer(k)
+    S = ROW_U32 // slot_words_for(W)
+    counts = tab[:, W * S : (W + 1) * S].reshape(-1).to(torch.int64) & M32
+    hist = torch.bincount(torch.clamp(counts, max=high + 1),
+                          minlength=high + 2).cpu().numpy()
+    return [(c, int(hist[c])) for c in range(1, high + 2) if hist[c] > 0]
+
+
+def histogram_rows_from_counts(counts, high: int = HISTO_HIGH) -> list[tuple[int, int]]:
+    """Nonzero (col, freq) rows from a host count array; the same rows as
+    histogram_rows of a table holding these records."""
+    c = np.asarray(counts)
+    c = c[c > 0]
+    clipped = np.minimum(c.astype(np.int64), high + 1)
+    hist = np.bincount(clipped, minlength=high + 2)
+    return [(int(col), int(hist[col]))
+            for col in range(1, high + 2) if hist[col] > 0]
+
+
+def write_histogram(path: str, rows) -> None:
+    with open(path, "w") as f:
+        for col, freq in rows:
+            f.write(f"{col} {freq}\n")
+
+
+def read_histogram(path: str) -> list[tuple[int, int]]:
+    rows = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if parts:
+                rows.append((int(parts[0]), int(parts[-1])))
+    return rows
+
+
+def threshold_from_histogram(rows) -> int | None:
+    """First-local-minimum threshold (reference src/jellyfish.py walk):
+    ``count`` starts at the first row's frequency and the walk begins at
+    the second row; None where the reference exits 1 or prints nothing."""
+    count = -1
+    threshold = 0
+    for col, freq in rows:
+        if count == -1:
+            count = freq
+        else:
+            if count >= freq:
+                count = freq
+                threshold = col // 2
+            else:  # found local min
+                if threshold < 2:
+                    return None
+                return threshold
+    return None  # never rose again: empty output in the reference

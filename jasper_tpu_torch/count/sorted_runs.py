@@ -1,0 +1,262 @@
+"""Sorted-run k-mer accumulation in torch (counterpart of
+jasper_tpu/count/sorted_runs.py:40-490, kernel family K4).
+
+A *run* is a triple of tensors (h [B], keys [B, W], counts [B]), each an
+int64 holding a uint32 (ops/hashing.py), where
+
+  * lanes with counts > 0 ("active") hold distinct keys with h = mix32(key),
+  * active lanes are sorted by (h, key) and precede all dead lanes,
+  * dead lanes (counts == 0) are padding with h/keys garbage.
+
+Active lanes equal jasper_tpu's lane for lane; dead lanes may hold other
+garbage in another order, so comparisons look at actives and ``n_active``.
+
+torch.sort takes one key, so jasper_tpu's multi-operand
+``lax.sort(num_keys=2+W)`` over (dead, h, key words msb-first) becomes a
+chain of stable sorts, least significant key first, on keys packed into
+int64: key words in pairs from the top, then (dead << 32) | h — two passes
+at k <= 32 (W <= 2), three at k = 37 (W = 3).
+
+Counts saturate at 2^32-1 on merge, as jasper_tpu's do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from jasper_tpu_torch.ops.hashing import M32, mix32
+from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+
+U32_MAX = M32
+_HALF = 1 << 31
+
+
+def _sort_cols(dead, h, keys) -> list[torch.Tensor]:
+    """The int64 sort keys of (dead, h, key words msb-first), least
+    significant first. A pair of words (hi, lo) packs as
+    (hi - 2^31) * 2^32 + lo: monotone in (hi, lo) and inside int64."""
+    W = keys.shape[1]
+    cols = [keys[:, 0]] if W % 2 else []
+    for j in range(W % 2, W, 2):
+        cols.append((keys[:, j + 1] - _HALF) * (1 << 32) + keys[:, j])
+    cols.append(dead * (1 << 32) + h)
+    return cols
+
+
+def _sort_pass(c, perm):
+    """One stable pass of _lexsort: ``perm`` (None on the first pass)
+    refined by the sort key ``c``."""
+    idx = torch.sort(c if perm is None else c[perm], stable=True).indices
+    return idx if perm is None else perm[idx]
+
+
+def _lexsort(cols) -> torch.Tensor:
+    """Permutation that sorts the lanes by cols[-1], then cols[-2], ...:
+    one stable sort per key, least significant first."""
+    perm = None
+    for c in cols:
+        perm = _sort_pass(c, perm)
+    return perm
+
+
+def _sort_by_key(h, keys, counts):
+    """Sort lanes by (dead, h, key); dead lanes (counts == 0) go last."""
+    dead = (counts == 0).to(torch.int64)
+    perm = _lexsort(_sort_cols(dead, h, keys))
+    return h[perm], keys[perm], counts[perm]
+
+
+def _same_as_prev(h, keys, counts):
+    same = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    same[1:] = ((h[1:] == h[:-1]) & (keys[1:] == keys[:-1]).all(dim=1)
+                & (counts[1:] > 0) & (counts[:-1] > 0))
+    return same
+
+
+def _run_lengths(sh, skeys, svalid):
+    """Totals of a sorted uncompacted run: each distinct key's first lane
+    gets its run length (from lane positions: the reverse cummin of
+    last-of-run positions), every other lane 0."""
+    B = sh.shape[0]
+    same = torch.zeros(B, dtype=torch.bool, device=sh.device)
+    same[1:] = (svalid[1:] & svalid[:-1] & (sh[1:] == sh[:-1])
+                & (skeys[1:] == skeys[:-1]).all(dim=1))
+    rep = svalid & ~same
+    pos = torch.arange(B, dtype=torch.int64, device=sh.device)
+    is_last = torch.ones(B, dtype=torch.bool, device=sh.device)
+    is_last[:-1] = ~same[1:]
+    # U32_MAX stays above every position, as in jasper_tpu
+    cand = torch.where(is_last, pos, U32_MAX)
+    run_end = torch.flip(torch.cummin(torch.flip(cand, (0,)), dim=0).values, (0,))
+    return torch.where(rep, run_end - pos + 1, 0)
+
+
+def make_run_ones(keys, valid):
+    """Windows -> UNCOMPACTED run, multiplicity 1 per valid lane (the
+    counting hot path): one multi-key sort, totals are run lengths, and
+    duplicates stay interspersed as dead lanes. keys int64 [B, W] (values
+    < 2^32), valid bool [B] -> (h, keys, totals)."""
+    h = mix32(keys)
+    perm = _lexsort(_sort_cols((~valid).to(torch.int64), h, keys))
+    sh, skeys, svalid = h[perm], keys[perm], valid[perm]
+    return sh, skeys, _run_lengths(sh, skeys, svalid)
+
+
+def _compact(h, keys, counts):
+    """Actives (counts > 0) first, in (h, key) order; returns (h, keys,
+    counts, n_active) with n_active a 0-d tensor (no host sync).
+
+    jasper_tpu sorts the full (dead, h, key) here without stability, which
+    orders the actives uniquely only because they are distinct keys. Every
+    caller already hands over its actives in (h, key) order, interspersed
+    with dead lanes, so one stable sort on the dead flag gives the same
+    active order."""
+    perm = torch.sort((counts == 0).to(torch.uint8), stable=True).indices
+    return h[perm], keys[perm], counts[perm], (counts > 0).sum()
+
+
+def merge_runs(ha, ka, ca, hb, kb, cb):
+    """Merge two runs (each with distinct active keys) into one run of
+    length len(a) + len(b): each key appears at most twice in the
+    concatenation, so a total is one neighbour add, saturated at 2^32-1.
+    Returns (h, keys, counts, n_active)."""
+    sh, skeys, scounts = _sort_by_key(torch.cat([ha, hb]),
+                                      torch.cat([ka, kb]),
+                                      torch.cat([ca, cb]))
+    same_prev = _same_as_prev(sh, skeys, scounts)
+    same_next = torch.roll(same_prev, -1)
+    nxt = torch.roll(scounts, -1)
+    summed = torch.clamp(scounts + torch.where(same_next, nxt, 0), max=U32_MAX)
+    return _compact(sh, skeys, torch.where(same_prev, 0, summed))
+
+
+def _pad_run(h, keys, counts, L: int):
+    pad = L - h.shape[0]
+    return (torch.cat([h, h.new_zeros(pad)]),
+            torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))]),
+            torch.cat([counts, counts.new_zeros(pad)]))
+
+
+def flush_stage(key_parts, valid_parts):
+    """Staged raw windows -> one compacted run (jasper_tpu's
+    _flush_stage_jit): make_run_ones, then _compact."""
+    keys = torch.cat(list(key_parts))
+    valid = torch.cat(list(valid_parts))
+    return _compact(*make_run_ones(keys, valid))
+
+
+def extract_windows(codes, k: int, partition=None):
+    """Code chunk (uint8 tensor [L]) -> (keys int64 [n_out, W], valid bool
+    [n_out]), canonical, on the chunk's device: the staging feed of
+    RunAccumulator.push_raw.
+
+    jasper_tpu extracts in residue-grouped order and pads with invalid lanes
+    to 16 * ceil(n / 16). The order does not matter, because a sort follows,
+    so the port's positional extraction serves; the padding is kept so that
+    stage, flush and level lengths equal jasper_tpu's.
+
+    partition=(p, P), P a power of two, keeps only the windows whose mix32
+    hash falls in the p-th of P equal top-bit ranges."""
+    keys, valid = canonical_windows_fast(codes, k)
+    pad = -keys.shape[0] % 16
+    if pad:
+        keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    if partition is not None:
+        p, P = partition
+        if P < 1 or P & (P - 1) or not 0 <= p < P:
+            raise ValueError(f"partition {partition}: P must be a power of "
+                             "two and 0 <= p < P")
+        if P > 1:
+            bits = P.bit_length() - 1
+            valid = valid & ((mix32(keys) >> (32 - bits)) == p)
+    return keys, valid
+
+
+class RunAccumulator:
+    """LSM-style accumulator of sorted runs on one device (jasper_tpu's
+    RunAccumulator).
+
+    push_raw stages raw window keys and collapses them with ONE
+    make_run_ones sort per ``stage_lanes`` lanes. A run's size class is the
+    smallest power-of-two multiple of ``unit`` lanes that holds its actives;
+    two runs in one class merge, the smaller padded to the larger's length.
+    finish() merges every level into one run.
+
+    jasper_tpu queues runs FIFO while their active count crosses its slow
+    device-to-host link, and resolves the queue in order. Here the count is
+    read at once with ``int()``; that queue then never holds more than one
+    run, so it reduces to the cascade in _push, and the levels are the ones
+    jasper_tpu builds when its queue drains in step. With nothing pending,
+    jasper_tpu's n_settled_lanes equals n_resident_lanes.
+    """
+
+    def __init__(self, unit: int, stage_lanes: int):
+        self.unit = max(1, unit)
+        self.levels: dict[int, tuple] = {}  # size-class exponent -> run
+        self.stage_lanes = stage_lanes
+        self._stage: list[tuple] = []  # (keys [B, W], valid [B]) pairs
+        self._staged = 0
+
+    def push_raw(self, keys, valid):
+        """Stage raw window keys; flush with one sort when the staging
+        budget fills."""
+        self._stage.append((keys, valid))
+        self._staged += keys.shape[0]
+        if self._staged >= self.stage_lanes:
+            self.flush_stage()
+
+    def flush_stage(self):
+        if not self._stage:
+            return
+        stage, self._stage, self._staged = self._stage, [], 0
+        self._push(*flush_stage([k for k, _ in stage], [v for _, v in stage]))
+
+    def _size_class(self, n_active: int) -> int:
+        j = 0
+        while self.unit << j < n_active:
+            j += 1
+        return j
+
+    def _truncate(self, run, n_active: int):
+        h, keys, counts = run
+        j = self._size_class(n_active)
+        L = min(self.unit << j, h.shape[0])
+        return j, (h[:L], keys[:L], counts[:L])
+
+    def _merge(self, a, b):
+        """Merge two runs, padding the smaller to the larger's length (so
+        level lengths follow jasper_tpu's)."""
+        if a[0].shape[0] < b[0].shape[0]:
+            a, b = b, a
+        if b[0].shape[0] < a[0].shape[0]:
+            b = _pad_run(*b, a[0].shape[0])
+        return merge_runs(*a, *b)
+
+    def _push(self, h, keys, counts, n_act):
+        while True:
+            j, run = self._truncate((h, keys, counts), int(n_act))
+            if j not in self.levels:
+                self.levels[j] = run
+                return
+            h, keys, counts, n_act = self._merge(self.levels.pop(j), run)
+
+    def n_resident_lanes(self) -> int:
+        return sum(r[0].shape[0] for r in self.levels.values()) + self._staged
+
+    def finish(self):
+        """Merge all levels; returns (h, keys, counts, n_active) or None if
+        nothing was pushed."""
+        self.flush_stage()
+        runs = [self.levels.pop(j) for j in sorted(self.levels)]
+        if not runs:
+            return None
+        cur = runs[0]
+        n_active = None
+        for r in runs[1:]:
+            h, keys, counts, n_active = self._merge(cur, r)
+            cur = (h, keys, counts)
+        h, keys, counts = cur
+        if n_active is None:
+            n_active = (counts > 0).sum()
+        return h, keys, counts, int(n_active)

@@ -1,0 +1,372 @@
+"""Pipeline driver on the port: the jasper.sh equivalent (counterpart of
+jasper_tpu/pipeline/driver.py:358-651), reads -> polished FASTA on one
+device.
+
+Same stages, checkpoint markers, artifacts and `[stage +...]` timing lines
+as jasper_tpu's driver:
+
+  stage            marker                     reference
+  batch split      jasper.split.success       src/jasper.sh:152-159
+  k-mer DB         jasper.no_cat.success      src/jasper.sh:161-185
+  histogram        jasper.histo.success       src/jasper.sh:187-193
+  polish batches   jasper.correct.success     src/jasper.sh:195-216
+  join             jasper.join.success        src/jasper.sh:218-232
+  QV report        (stdout)                   src/jasper.sh:234-257
+
+The jax-free parts of jasper_tpu's driver (batch sizing and splitting, the
+joins, the QV arithmetic, logging and markers) are imported unchanged; the
+device parts are the port's: counting (count/counter.py), the histogram
+(count/histogram.py), the scanner and the device polish engine. One process
+drives one device; jasper_tpu's multi-host barriers and batch sharding
+collapse to process 0 of 1 (the multi-GPU port is ROADMAP queue 1 item 12).
+
+Deliberate difference: on the `-j` path the histogram is read from the
+table's counts column block (K7), not with jasper_tpu's `_host_histogram`,
+which reads slot-interleaved columns of word-major rows (ROADMAP F1).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from jasper_tpu.io.fastx import read_fasta, total_file_bytes
+from jasper_tpu.io.jf import write_jf
+from jasper_tpu.pipeline.driver import (
+    PipelineError,
+    _marker,
+    _rm,
+    _touch,
+    compute_batch_size,
+    join_fix_csvs,
+    join_polished,
+    log,
+    qv_from_tallies,
+    read_qv_helper,
+    split_batches,
+    tlog,
+)
+from jasper_tpu.polish.runner import polish_file
+
+from jasper_tpu_torch.count.counter import count_reads_to_host
+from jasper_tpu_torch.count.histogram import (
+    histogram_rows,
+    histogram_rows_from_counts,
+    read_histogram,
+    threshold_from_histogram,
+    write_histogram,
+)
+from jasper_tpu_torch.io.jf import load_jf_into_host_table
+from jasper_tpu_torch.parallel.scanner import select_scanner
+from jasper_tpu_torch.polish.device_engine import CountSource, DevicePolishEngine
+from jasper_tpu_torch.table.kmer_table import table_from_numpy
+from jasper_tpu_torch.utils.device import resolve_device
+
+
+def _polish_batches_mp(batch_paths, host_table, k, thr, passes, threads, workdir):
+    """Polish batches in ``threads`` worker processes of the port's runner
+    on the CPU (reference P5: `xargs -P $NUM_THREADS ./run_jasper.sh`,
+    src/jasper.sh:206-215), each reading the table from a shared .npy
+    memmap. SIGINT/SIGTERM/SIGHUP kill all live workers before re-raising
+    (the reference's `trap abort 1 2 15`, src/jasper.sh:23-28)."""
+    import signal
+    import subprocess
+
+    npy = os.path.join(workdir, f"table{k}.npy")
+    if not os.path.exists(npy):
+        np.save(npy, host_table.tab)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    last_it = passes - 1
+    queue = list(batch_paths)
+    running: list[tuple[subprocess.Popen, str]] = []
+
+    def _abort(signum, frame):
+        for p2, _ in running:
+            p2.kill()
+        signal.signal(signum, signal.SIG_DFL)
+        os.kill(os.getpid(), signum)
+
+    old_handlers = {}
+    for sig in (signal.SIGINT, signal.SIGTERM, signal.SIGHUP):
+        try:
+            old_handlers[sig] = signal.signal(sig, _abort)
+        except ValueError:
+            pass  # not the main thread
+
+    def reap():
+        proc, bp = running.pop(0)
+        rc = proc.wait()
+        if rc != 0:
+            for p2, _ in running:
+                p2.kill()
+            raise PipelineError(
+                f"polishing worker for {os.path.basename(bp)} failed (exit {rc})")
+        bn = os.path.basename(bp)
+        os.replace(os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa.tmp"),
+                   os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa"))
+
+    try:
+        while queue or running:
+            while queue and len(running) < threads:
+                bp = queue.pop(0)
+                bn = os.path.basename(bp)
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "jasper_tpu_torch.polish.runner",
+                     "--table-npy", npy, "--ksize", str(k), "-q", bp,
+                     "-p", str(passes), "--fix", "--fout", f"{bn}.fix.csv",
+                     "-ff", f"{bn}.fixed.fa.tmp", "--test", "-thre", str(thr),
+                     "--device", "cpu"],
+                    cwd=workdir, env=env,
+                )
+                running.append((proc, bp))
+            reap()
+    finally:
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+    _rm(npy)
+
+
+def run_pipeline(
+    assembly: str,
+    reads: list[str] | None = None,
+    jf_db: str | None = None,
+    k: int = 37,
+    threads: int = 2,
+    passes: int = 2,
+    batch: int = 0,
+    debug: bool = False,
+    workdir: str = ".",
+    cpu_workers: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Run the full polishing pipeline on ``device`` (``cuda`` by default;
+    no fallback). Returns jasper_tpu's result (polished, fixes, q_before,
+    q_after, db, batch_size) plus what the run drove: ``counts`` (the
+    CountSource) and ``scanner`` of the in-process polish stage (None when
+    it was skipped or ran in worker processes), ``scan_table_from_count``
+    (the scanner took the table the count built on the device) and
+    ``stages``, the (seconds, message) of every `[stage ...]` line.
+
+    threads shapes the batch size as in the reference (sh:127-139); with
+    cpu_workers=True and threads > 1 the batches are polished in that many
+    CPU worker processes (the reference's xargs -P fan-out), which only a
+    run on the CPU may ask for: the workers polish on the CPU."""
+    if cpu_workers and torch.device(device).type != "cpu":
+        raise PipelineError(
+            f"--cpu-workers polishes in CPU worker processes; it needs "
+            f"--device cpu, not {device}")
+    device = resolve_device(device)
+    stages: list[tuple[float, str]] = []
+    t_start = time.perf_counter()
+
+    def stage(msg):
+        tlog(msg)
+        stages.append((time.perf_counter() - t_start, msg))
+
+    workdir = os.path.abspath(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    if not os.path.exists(assembly) or os.path.getsize(assembly) == 0:
+        raise PipelineError(
+            "The query file does not exist. Please supply a valid fasta file "
+            "to be polished with -a option."
+        )
+    query_fn = os.path.basename(assembly)
+    last_it = passes - 1
+
+    batch_size = compute_batch_size(assembly, threads, batch)
+    log(f"Using BATCH SIZE {batch_size}")
+
+    if not os.path.exists(_marker(workdir, "split")):
+        log("Splitting query into batches for parallel execution")
+        for old in os.listdir(workdir):
+            if re.match(re.escape(query_fn) + r"\.batch\..*\.fa$", old):
+                _rm(os.path.join(workdir, old))
+        split_batches(assembly, batch_size, workdir, query_fn)
+        _rm(_marker(workdir, "correct"))
+        _touch(_marker(workdir, "split"))
+    batch_paths = sorted(
+        (
+            os.path.join(workdir, p)
+            for p in os.listdir(workdir)
+            if re.match(re.escape(query_fn) + r"\.batch\.\d+\.fa$", p)
+        ),
+        key=lambda p: int(p.rsplit(".batch.", 1)[1].split(".")[0]),
+    )
+
+    # database
+    histo_csv = os.path.join(workdir, f"jfhisto{k}.csv")
+    host_table = None
+    dev_tab = None  # the table on the device (the count's, or the -j upload)
+    db_writer = None  # background .jf artifact writer (joined before return)
+    if jf_db is None:
+        if not reads:
+            raise PipelineError(
+                "Either a jf database or files of polishing reads must be "
+                "provided in the argument."
+            )
+        for r in reads:
+            if not os.path.exists(r) or os.path.getsize(r) == 0:
+                raise PipelineError(
+                    f"The reads file  {r} does not exist. Please supply a series "
+                    "of valid reads files separated by space and wrapped in one "
+                    "pair of quotation marks."
+                )
+        jf_db = os.path.join(workdir, f"mer_counts{k}.jf")
+        if os.path.exists(jf_db) and os.path.getsize(jf_db) > 0:
+            log(f"Using existing jellyfish database {jf_db}")
+            _rm(_marker(workdir, "no_cat"))
+        else:
+            log(f"Creating jellyfish database {jf_db}")
+            jf_size = total_file_bytes(reads) // 10
+            stage("count: start (ingest + device counting)")
+            host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
+                reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage)
+            write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
+            stage("count: histogram done")
+
+            # the polish stage reads the in-memory table; the .jf artifact
+            # writes in the background (tmp + rename keeps a crashed run
+            # restartable) and is joined before the pipeline returns
+            def _write_db(path=jf_db, kk=k, ks=rkeys, cs=rcounts):
+                t0 = time.perf_counter()
+                try:
+                    # yield the CPU to the concurrent polish stage
+                    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+                except OSError:
+                    pass
+                tmp = path + ".tmp"
+                write_jf(tmp, kk, ks, cs.astype(np.uint64))
+                os.replace(tmp, path)
+                stage(f"count: background .jf write done "
+                      f"({time.perf_counter() - t0:.1f}s thread time)")
+
+            db_writer = threading.Thread(target=_write_db, name="jf-write")
+            db_writer.start()
+            del rkeys, rcounts
+            _touch(_marker(workdir, "no_cat"))
+            _touch(_marker(workdir, "histo"))
+
+    if host_table is None:
+        log(f"Loading k-mer database {jf_db}")
+        host_table, _header = load_jf_into_host_table(jf_db)
+        if host_table.k != k:
+            raise PipelineError(
+                f"Database {jf_db} has k={host_table.k}, but -k {k} was requested"
+            )
+
+    from_count = dev_tab is not None
+    if (not os.path.exists(_marker(workdir, "histo"))
+            or not (os.path.exists(histo_csv) and os.path.getsize(histo_csv) > 0)):
+        log("Computing K-mer histogram")
+        if dev_tab is None:  # uploaded once: the scanner below takes it too
+            dev_tab = table_from_numpy(host_table.tab, device)
+        write_histogram(histo_csv, histogram_rows(dev_tab, k))
+        _rm(_marker(workdir, "correct"))
+        _touch(_marker(workdir, "histo"))
+
+    # polish
+    counts = scanner = None
+    threshold_txt = os.path.join(workdir, "threshold.txt")
+    if not os.path.exists(_marker(workdir, "correct")):
+        log("Polishing")
+        thr = threshold_from_histogram(read_histogram(histo_csv))
+        if thr is None:
+            raise PipelineError(
+                "Local min of kmer counts is smaller than 4. The input read "
+                "data is not suitable for polishing."
+            )
+        with open(threshold_txt, "w") as f:
+            f.write(str(thr))
+        log(f"Lower threshold for unreliable kmers is {thr}")
+        if cpu_workers and threads > 1 and len(batch_paths) > 1:
+            _polish_batches_mp(
+                batch_paths, host_table, k, thr, passes, threads, workdir
+            )
+        else:
+            counts = CountSource(host_table)
+            scanner = select_scanner(host_table, k, device, device_tab=dev_tab)
+            log(f"Scanner: {type(scanner).__name__}")
+
+            def engine_cls(c, kk, t):
+                return DevicePolishEngine(c, kk, t, scanner=scanner)
+
+            stage("polish: start")
+            for bp in batch_paths:
+                bn = os.path.basename(bp)
+                polish_file(
+                    bp, counts, k, thr, passes,
+                    fix=True, test=True,
+                    fout=f"{bn}.fix.csv", fixedout=f"{bn}.fixed.fa.tmp",
+                    workdir=workdir, engine_cls=engine_cls,
+                )
+                os.replace(
+                    os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa.tmp"),
+                    os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa"),
+                )
+                stage(f"polish: batch {bn} done")
+        _rm(_marker(workdir, "join"))
+        _touch(_marker(workdir, "correct"))
+
+    # join
+    polished = os.path.join(workdir, f"{query_fn}.polished.fasta")
+    fixes_csv = os.path.join(workdir, f"{query_fn}.fixes.csv")
+    if not os.path.exists(_marker(workdir, "join")):
+        log("Joining")
+        stage("join: start")
+        fixed_paths = [
+            os.path.join(workdir, f"_iter{last_it}_{os.path.basename(bp)}.fixed.fa")
+            for bp in batch_paths
+        ]
+        contig_order = list(read_fasta(assembly).keys())
+        join_polished(fixed_paths, batch_size, contig_order, polished)
+        for p in fixed_paths:
+            _rm(p)
+        fix_csv_re = r"_iter\d+_" + re.escape(query_fn) + r"\.batch\.\d+\.fa\.fix\.csv$"
+        csv_paths = sorted(os.path.join(workdir, p) for p in os.listdir(workdir)
+                           if re.match(fix_csv_re, p))
+        join_fix_csvs(csv_paths, fixes_csv)
+        _touch(_marker(workdir, "join"))
+        if not debug:
+            for p in os.listdir(workdir):
+                if re.match(fix_csv_re, p) or re.match(
+                        re.escape(query_fn) + r"\.batch\.\d+\.fa$", p):
+                    _rm(os.path.join(workdir, p))
+
+    # QV
+    err_b, tot_b = read_qv_helper(os.path.join(workdir, "0qValCalcHelper.csv"))
+    err_a, tot_a = read_qv_helper(os.path.join(workdir, f"{passes}qValCalcHelper.csv"))
+    q_before = qv_from_tallies(err_b, tot_b, k)
+    q_after = qv_from_tallies(err_a, tot_a, k)
+    log(f"Before Polishing: Q value = {q_before}")
+    log(f"After Polishing: Q value = {q_after}")
+    for p in os.listdir(workdir):
+        if p.endswith("qValCalcHelper.csv"):
+            _rm(os.path.join(workdir, p))
+    if db_writer is not None:
+        t0 = time.perf_counter()
+        db_writer.join()
+        wait = time.perf_counter() - t0
+        if wait > 0.5:
+            stage(f"blocked {wait:.1f}s waiting for background .jf write")
+    stage("pipeline done")
+    log(f"Polished sequence is in {query_fn}.polished.fasta")
+    return {
+        "polished": polished,
+        "fixes": fixes_csv,
+        "q_before": q_before,
+        "q_after": q_after,
+        "db": jf_db,
+        "batch_size": batch_size,
+        "counts": counts,
+        "scanner": scanner,
+        "scan_table_from_count": scanner is not None and from_count,
+        "stages": stages,
+    }

@@ -7,6 +7,8 @@ CPU run.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -26,3 +28,14 @@ def resolve_device(name: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {name!r} (cuda or cpu)")
     return dev
+
+
+def available_bytes(device: torch.device) -> int:
+    """Bytes a new allocation on ``device`` can still take: on a card the
+    driver's free memory plus what torch's caching allocator holds but no
+    tensor uses; on the CPU the host's available physical memory."""
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return int(free + torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")

@@ -1,6 +1,7 @@
 """The port runs with jax absent: a subprocess blocks ``import jax`` before
 any other import (this test process cannot: tests/conftest.py imports jax),
-then drives ``jasper_tpu_torch.polish.runner`` on the CPU end to end."""
+then drives ``jasper_tpu_torch.polish.runner`` and the pipeline CLI
+(``jasper_tpu_torch.pipeline.cli``) on the CPU end to end."""
 
 import os
 import subprocess
@@ -64,3 +65,41 @@ def test_port_runs_without_jax(tmp_path):
         assert (tmp_path / name).exists(), name
     fixed = (tmp_path / "_iter1_fixed_seq.fasta").read_text().split("\n", 1)[1]
     assert fixed.replace("\n", "") == genome
+
+
+PIPELINE_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    from jasper_tpu_torch.pipeline import cli
+    res = cli.run(["-a", "asm.fa", "-r", "reads.fq", "-k", "25", "-p", "2",
+                   "-t", "1", "--workdir", "wd", "--device", "cpu"])
+    assert res["scan_table_from_count"], "scan did not take the counted table"
+    assert res["counts"]._native is not None, "native CountSource not bound"
+    assert cli.main(["-a", "asm.fa", "-j", "wd/mer_counts25.jf", "-k", "25",
+                     "-t", "1", "--workdir", "wd_j", "--device", "cpu"]) == 0
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
+    assert not loaded, loaded
+    print("NOJAX_PIPELINE_OK", res["q_before"], res["q_after"])
+""")
+
+
+def test_pipeline_runs_without_jax(tmp_path):
+    """The port's pipeline CLI from reads (count, device table, polish,
+    join, QV) and from the .jf it wrote, with jax blocked."""
+    rng = np.random.default_rng(2)
+    genome = G.random_genome(rng, 6000)
+    with open(tmp_path / "reads.fq", "w") as f:
+        for i, r in enumerate(G.tiled_reads(genome, read_len=100, stride=3)):
+            f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+    draft = genome[:2000] + genome[2001:4000] + "A" + genome[4000:]
+    G.write_fasta_file(str(tmp_path / "asm.fa"), {"ctg": draft})
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", PIPELINE_SCRIPT], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "NOJAX_PIPELINE_OK" in r.stdout
+    for wd in ("wd", "wd_j"):
+        polished = (tmp_path / wd / "asm.fa.polished.fasta").read_text()
+        assert polished == f">ctg\n{genome}\n", wd
