@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--seed 7] [--workdir DIR]
+    python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--big-kb 100000]
+                          [--phases 3,4,5,6,7,8] [--seed 7] [--workdir DIR]
 
-Phases, each fatal on failure (nothing is caught):
+Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
   2. build csrc/*.cu for sm_90a from the checkout (timed);
   3. kernel vs plain: the CUDA bucket probe against its plain torch twin on
@@ -23,19 +24,38 @@ Phases, each fatal on failure (nothing is caught):
      host-built one and K7 against the counts' histogram;
   6. the main path, the driver from reads: jasper_tpu_torch.pipeline.cli
      -a asm.fa -r reads.fq -k 25 -p 2 -t 1 -b 25000000 --device cuda on the
-     whole race input. Checks: the probe kernel launched (count reset just
-     before), the scanner took the device-built table, which equals the
-     host-built one, the native repair queries are bound, no counting step
-     peaked past the budget's lane multiple (count/counter.py), and at
-     20000 kb jasper_tpu's race20 results: 55,718,396 records, threshold 5,
-     QV 36.14958 -> 71.42679. Reports the stage seconds; the device ms of
-     every extraction, stage flush, ladder merge and table build (CUDA
-     events around the path's own calls), with the fastest full-size stage
-     flush split into its sorted_runs steps; the peak device memory of
-     every sorting ladder step against the resident lanes; and the share of
-     injected errors repaired. Then the probe at this path's shape (one 4
-     M-window tile of the draft against the counted table), kernel vs
-     plain, and the tile's scan broken down by stage.
+     whole race input (the classic single-ladder count). Checks: the probe
+     kernel launched (count reset just before), the scanner took the
+     device-built table, which equals the host-built one, the native repair
+     queries are bound, no counting step peaked past the budget's lane
+     multiple (count/counter.py), and at 20000 kb jasper_tpu's race20
+     results: 55,718,396 records, threshold 5, QV 36.14958 -> 71.42679.
+     Reports the stage seconds; the device ms of every extraction, stage
+     flush, ladder merge and table build (CUDA events around the path's own
+     calls), with the fastest full-size stage flush split into its
+     sorted_runs steps; the peak device memory of every sorting step against
+     the resident lanes; and the share of injected errors repaired. Then the
+     probe at this path's shape (one 4 M-window tile of the draft against
+     the counted table), kernel vs plain, and the tile's scan by stage;
+  7. the race reads through every other counting branch on the card:
+     count_reads_to_host forced (jasper_tpu's own variables) to 4 partitions
+     in 2 passes, to 4 partitions in 4 passes, and, with scale_finish_lanes
+     a third of phase 6's peak resident lanes, to mid-count eviction and the
+     host-merge finish. Gates: the race20 records, the device table built
+     from the merged run equal to phase 6's scanner table, one level pull
+     equal to a blocking .cpu() of the same level, no step past the lane
+     multiple. Reports each branch's seconds (counting, pulls, host merge,
+     device build), and the host mix32 against pulling h;
+  8. chromosome scale, the driver from reads on make_data(--big-kb, 40)
+     (race100: made in a child process while phases 3-7 run, and run after
+     race20's files are deleted), phase 6's arguments and no
+     JT_* variable: the budget must choose P > 1. At 100000 kb jasper_tpu's
+     race100 results gate it: 278,399,246 records, threshold 5, QV 36.14758
+     -> 76.81952, jfhisto25.csv equal to race_artifacts/race100_histo_tpu.txt;
+     and the probe launched, the scanner's table equals the host table, no
+     step past the lane multiple. Reports P, G, the stage seconds, the
+     resident lanes per pass, the device ms of the split flushes and the
+     peak device memory.
 
 Ends with a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -45,7 +65,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
-import importlib.util
+import contextlib
 import json
 import os
 import re
@@ -60,6 +80,10 @@ RACE_RECORDS = 55_718_396  # race20 distinct 25-mers (race_artifacts/race20_tpu_
 RACE_KB = 20_000  # race20 genome (tools/race_reference.py make_data)
 RACE_QV = ("36.14958", "71.42679")  # race_artifacts/race20_result_r5.json
 RACE_RESIDENT = 234_880_352  # jasper_tpu's lanes after counting (run log :6)
+BIG_KB = 100_000  # race100 genome (race_artifacts/race100_result.json)
+BIG_RECORDS = 278_399_246  # race_artifacts/race100_tpu_run.log:14
+BIG_QV = ("36.14758", "76.81952")  # race_artifacts/race100_result.json
+BIG_HISTO = os.path.join("race_artifacts", "race100_histo_tpu.txt")
 HERE = os.path.dirname(os.path.abspath(__file__))
 LANES = 1 << 22  # probe lanes per comparison = the scan tile
 M32 = 0xFFFFFFFF
@@ -406,27 +430,55 @@ def phase_main_shape(scanner, draft: bytes, device, k: int = 25) -> dict:
 # -- phases 5-6: counting and the driver from reads --------------------------
 
 
-def race_data(workdir: str, race_kb: int, seed: int):
-    """tools/race_reference.make_data(race_kb, 40, seed): the repo's race
-    input (genome, a draft with a rotating sub/del/ins error every ~4 kb,
-    40x of 250 bp FASTQ reads with hotspot and 0.2% random errors). Returns
-    (asm, reads, genome bytes, error positions); the genome is make_data's
-    first draw from the seed."""
-    race_dir = os.path.join(workdir, "race")
+MAKE_DATA = """
+import importlib.util, json, sys, time
+spec = importlib.util.spec_from_file_location("race_reference", sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+t0 = time.perf_counter()
+asm, reads = mod.make_data(int(sys.argv[2]), 40, seed=int(sys.argv[3]))
+print(json.dumps([asm, reads, time.perf_counter() - t0]))
+"""
+
+
+def start_race_data(workdir: str, name: str, race_kb: int, seed: int):
+    """Start tools/race_reference.make_data(race_kb, 40, seed) in a child
+    process writing into workdir/name: the repo's race input (genome, a
+    draft with a rotating sub/del/ins error every ~4 kb, 40x of 250 bp FASTQ
+    reads with hotspot and 0.2% random errors). Returns a function that
+    waits for the child and gives (asm, reads, genome bytes, error
+    positions); the genome is make_data's first draw from the seed. The
+    function's ``proc`` is the child, for the caller to stop on failure."""
+    race_dir = os.path.join(workdir, name)
     os.makedirs(race_dir, exist_ok=True)
-    os.environ["JT_RACE_DIR"] = race_dir  # read when the module loads
-    spec = importlib.util.spec_from_file_location(
-        "race_reference", os.path.join(HERE, "tools", "race_reference.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
     t0 = time.perf_counter()
-    asm, reads = mod.make_data(race_kb, 40, seed=seed)
-    n = race_kb * 1000
-    g = np.random.default_rng(seed).integers(0, 4, size=n).astype(np.uint8)
-    genome = np.frombuffer(b"ACGT", np.uint8)[g].tobytes()
-    log(f"race data: {race_kb} kb at 40x, {os.path.getsize(reads)} B of reads, "
-        f"generated in {time.perf_counter() - t0:.1f}s")
-    return asm, reads, genome, list(range(2000, n - 4000, 4000))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", MAKE_DATA, os.path.join(HERE, "tools", "race_reference.py"),
+         str(race_kb), str(seed)],
+        env=dict(os.environ, JT_RACE_DIR=race_dir),  # read when the module loads
+        stdout=subprocess.PIPE, text=True)
+
+    def wait():
+        t1 = time.perf_counter()
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"make_data({race_kb}, 40) exited with {proc.returncode}")
+        asm, reads, gen_s = json.loads(out)
+        n = race_kb * 1000
+        g = np.random.default_rng(seed).integers(0, 4, size=n).astype(np.uint8)
+        genome = np.frombuffer(b"ACGT", np.uint8)[g].tobytes()
+        log(f"race data: {race_kb} kb at 40x, {os.path.getsize(reads)} B of reads, "
+            f"generated in {gen_s:.1f}s ({time.perf_counter() - t1:.1f}s "
+            f"waited, {t1 - t0:.1f}s after the start)")
+        return asm, reads, genome, list(range(2000, n - 4000, 4000))
+
+    wait.proc = proc
+    return wait
+
+
+def race_data(workdir: str, name: str, race_kb: int, seed: int):
+    """start_race_data, waited for."""
+    return start_race_data(workdir, name, race_kb, seed)()
 
 
 def oracle_counts(fastq: str, k: int):
@@ -580,73 +632,132 @@ class EventLog:
 
 
 class PeakLog:
-    """Peak device memory of every ladder step that sorts (a push that
-    flushed the stage, and the finish with its table build), above the
-    memory allocated before the run, against the resident lanes that the
-    budget check of count/counter.py saw just before it. Their worst ratio,
-    in lanes of 8 * (W + 2) bytes, is the lane multiple the budget assumes."""
+    """Peak device memory of every counting step that sorts or moves the
+    whole set (a push that flushed the stage, split or not; a finish with
+    its table build; a partition ladder's finish; the host-merge pull; the
+    device build from the merged run), above the memory allocated when the
+    log was made, against the resident lanes the step works on. Their worst
+    ratio, in lanes of 8 * (W + 2) bytes, is the lane multiple the budget
+    assumes. A step called inside another wrapped step counts in that one.
+    A ladder finish is held against the resident lanes of its whole pass."""
 
     def __init__(self, device, k: int):
         import torch
 
+        from jasper_tpu_torch.count.counter import lane_bytes
+
         self.device = device
-        self.lane_bytes = 8 * ((2 * k + 31) // 32 + 2)
+        self.lane_bytes = lane_bytes(k)
         self.base = torch.cuda.memory_allocated(device)
         self.rows: list[tuple] = []  # (step, resident lanes, bytes above base)
         self.peak = 0
+        self.pass_resident = 0
+        self._depth = 0
 
-    def wrap(self, name: str, fn):
+    def wrap(self, name: str, fn, resident_of, recorded=lambda *a, **kw: True):
         import torch
 
-        def timed(acc, *a, **kw):
-            resident = acc.n_resident_lanes()
+        def timed(*a, **kw):
+            if self._depth:
+                return fn(*a, **kw)
+            resident = resident_of(*a, **kw)
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.device))
             torch.cuda.reset_peak_memory_stats(self.device)
-            out = fn(acc, *a, **kw)
+            self._depth += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                self._depth -= 1
             peak = torch.cuda.max_memory_allocated(self.device)
             self.peak = max(self.peak, peak)
-            if name == "finish" or acc._staged == 0:  # a push that flushed
+            if recorded(*a, **kw):
                 self.rows.append((name, resident, peak - self.base))
             return out
         return timed
+
+    def wraps(self) -> list:
+        """(owner, name, wrapper) for every step the log reads."""
+        from jasper_tpu_torch.count import counter
+        from jasper_tpu_torch.count import sorted_runs as sr
+
+        def flushed(acc, *a, **kw):
+            return acc._staged == 0
+
+        def lanes(acc, *a, **kw):
+            return acc.n_resident_lanes()
+
+        def drain(fn):
+            def drained(pacc):
+                fn(pacc)
+                self.pass_resident = pacc.n_resident_lanes()
+            return drained
+
+        return [
+            (sr.RunAccumulator, "push_raw", lambda f: self.wrap("push", f, lanes, flushed)),
+            (sr.PartitionedRunAccumulator, "push_raw",
+             lambda f: self.wrap("split push", f, lanes, flushed)),
+            (sr.PartitionedRunAccumulator, "drain", drain),
+            (counter, "_finish_to_table", lambda f: self.wrap("finish", f, lanes)),
+            (sr.RunAccumulator, "finish", lambda f: self.wrap(
+                "ladder finish", f, lambda acc: self.pass_resident)),
+            (counter, "finish_runs_to_host", lambda f: self.wrap(
+                "host-merge pull", f, lanes)),
+            (counter, "_device_table_from_host_run", lambda f: self.wrap(
+                "device build from merged run", f, lambda rh, *a, **kw: len(rh))),
+        ]
 
     def ratio(self, row) -> float:
         return row[2] / (self.lane_bytes * max(row[1], 1))
 
     def summary(self) -> dict:
         worst = max(self.rows, key=self.ratio)
+        by_step: dict = {}
+        for row in self.rows:
+            by_step[row[0]] = max(by_step.get(row[0], 0.0), self.ratio(row))
         return {"worst_lane_multiple": self.ratio(worst), "at": worst[0],
                 "resident_lanes": worst[1], "bytes_above_base": worst[2],
                 "base_bytes": self.base, "lane_bytes": self.lane_bytes,
-                "per_step": [(n, r, b, self.ratio((n, r, b)))
-                             for n, r, b in self.rows]}
+                "worst_by_step": by_step,
+                "per_step": [(n, r, b, self.ratio((n, r, b))) for n, r, b in self.rows]}
+
+    def check(self, limit: int) -> dict:
+        out = self.summary()
+        if out["worst_lane_multiple"] > limit:
+            raise AssertionError(
+                f"{out['at']} peaked at {out['worst_lane_multiple']:.3f} lanes per "
+                f"resident lane, past the budget's PEAK_LANE_MULTIPLE = {limit}")
+        return out
 
 
-def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
-                 full: bool, k: int = 25) -> dict:
-    """Phase 6: the port's CLI from reads as the race ran jasper_tpu
-    (tools/race_reference.py:180-182,214,244), every extraction, stage
-    flush (step by step), ladder merge and table build timed on the card as
-    it runs, and the peak memory of every sorting ladder step held against
-    the counting budget's lane multiple."""
-    import torch
+@contextlib.contextmanager
+def patched(wraps):
+    """Replace owner.name with wrap(owner.name) for each (owner, name, wrap)
+    while the block runs; restore them after, even on failure."""
+    orig = [owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
+            for owner, name, _ in wraps]
+    try:
+        for (owner, name, wrap), fn in zip(wraps, orig):
+            setattr(owner, name, wrap(fn))
+        yield
+    finally:
+        for (owner, name, _), fn in zip(wraps, orig):
+            setattr(owner, name, fn)
 
+
+def event_wraps(events: EventLog) -> list:
+    """The main path's device calls, timed with CUDA events as they run."""
     from jasper_tpu_torch.count import counter
     from jasper_tpu_torch.count import sorted_runs as sr
-    from jasper_tpu_torch.count.histogram import histogram_rows, read_histogram
-    from jasper_tpu_torch.pipeline import cli
-    from jasper_tpu_torch.table import build, probe
-    from jasper_tpu_torch.table.kmer_table import table_from_numpy
-    from jasper_tpu_torch.table.native_table import NativeTableQuery
+    from jasper_tpu_torch.table import build
 
-    wd = os.path.join(os.path.dirname(reads), "run")
-    events = EventLog()
-    peaks = PeakLog(device, k)
-    wraps = [
+    return [
         (counter, "extract_windows", lambda f: events.wrap(
             "extract_windows", f, lambda codes, kk, partition=None: codes.shape[0])),
         (sr, "flush_stage", lambda f: events.wrap(
             "stage_flush", f, lambda kp, vp: sum(x.shape[0] for x in kp),
             flush=True)),
+        (sr, "flush_stage_split", lambda f: events.wrap(
+            "split_flush", f, lambda kp, vp, *a, **kw: sum(x.shape[0] for x in kp))),
         (sr, "mix32", lambda f: events.step("mix32", f)),
         (sr, "_sort_cols", lambda f: events.step("sort keys", f)),
         (sr, "_sort_pass", lambda f: events.step("sort pass", f)),
@@ -657,31 +768,53 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
             lambda self, a, b: 2 * max(a[0].shape[0], b[0].shape[0]))),
         (build, "build_from_run", lambda f: events.wrap(
             "build_from_run", f, lambda h, keys, counts, n_buckets: h.shape[0])),
-        (sr.RunAccumulator, "push_raw", lambda f: peaks.wrap("push", f)),
-        (counter, "_finish_to_table", lambda f: peaks.wrap("finish", f)),
     ]
-    orig = [getattr(owner, name) for owner, name, _ in wraps]
-    for (owner, name, wrap), fn in zip(wraps, orig):
-        setattr(owner, name, wrap(fn))
+
+
+COUNT_RE = re.compile(r"count: (?:run pull|partitioned finish|host-merge finish) "
+                      r"done \((\d+) records\)")
+PASS_RE = re.compile(r"count: pass (\d+)/(\d+) counted \((\d+) resident lanes, "
+                     r"(\d+) ladders\)")
+PARTS_RE = re.compile(r"count: (\d+) hash partitions in (\d+) passes")
+
+
+def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
+                 gates: dict, k: int = 25) -> dict:
+    """Phases 6 and 8: the port's CLI from reads as the race ran jasper_tpu
+    (tools/race_reference.py:180-182,214,244), every extraction, stage
+    flush (step by step), ladder merge and table build timed on the card as
+    it runs, and the peak memory of every counting step held against the
+    budget's lane multiple. ``gates`` holds the results to reproduce
+    (records, threshold, qv, histogram rows), empty below full size."""
+    import torch
+
+    from jasper_tpu_torch.count import counter
+    from jasper_tpu_torch.count.histogram import histogram_rows, read_histogram
+    from jasper_tpu_torch.pipeline import cli
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.kmer_table import table_from_numpy
+    from jasper_tpu_torch.table.native_table import NativeTableQuery
+
+    wd = os.path.join(os.path.dirname(reads), "run")
+    events = EventLog()
+    peaks = PeakLog(device, k)
     torch.cuda.reset_peak_memory_stats(device)
     probe.LAUNCHES = 0
     t0 = time.perf_counter()
-    try:
+    with patched(event_wraps(events) + peaks.wraps()):
         res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
                        "-b", "25000000", "--workdir", wd, "--device", str(device)])
-    finally:
-        for (owner, name, _), fn in zip(wraps, orig):
-            setattr(owner, name, fn)
     wall = time.perf_counter() - t0
     launches = probe.LAUNCHES
     peak = max(peaks.peak, torch.cuda.max_memory_allocated(device))
 
     stages = res["stages"]
     msgs = [m for _, m in stages]
-    records = int(next(re.search(r"\((\d+) records\)", m).group(1)
-                       for m in msgs if m.startswith("count: run pull done")))
-    resident = int(next(re.search(r"\((\d+) resident", m).group(1)
-                        for m in msgs if m.startswith("count: device counting done")))
+    records = int(next(COUNT_RE.search(m).group(1) for m in msgs if COUNT_RE.search(m)))
+    resident = [int(re.search(r"\((\d+) resident", m).group(1)) for m in msgs
+                if m.startswith("count: device counting done") or PASS_RE.match(m)]
+    parts = next((tuple(map(int, PARTS_RE.match(m).groups())) for m in msgs
+                  if PARTS_RE.match(m)), (1, 1))
     with open(os.path.join(wd, "threshold.txt")) as f:
         thr = int(f.read())
     polished = read_fasta_one(os.path.join(wd, "asm.fa.polished.fasta"))
@@ -694,40 +827,166 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
         raise AssertionError(f"repair queries not on the native library: {counts._native!r}")
     if not torch.equal(scanner.tab, table_from_numpy(counts.table.tab, device)):
         raise AssertionError("device-built table != host-built table")
-    hist_rows = histogram_rows(scanner.tab, k)
-    if hist_rows != read_histogram(os.path.join(wd, f"jfhisto{k}.csv")):
+    histo = read_histogram(os.path.join(wd, f"jfhisto{k}.csv"))
+    if histogram_rows(scanner.tab, k) != histo:
         raise AssertionError("K7 histogram of the table != jfhisto csv")
-    want = {"records": RACE_RECORDS, "threshold": 5,
-            "qv": list(RACE_QV)} if full else {}
-    got = {"records": records, "threshold": thr,
-           "qv": [res["q_before"], res["q_after"]]}
-    for key, val in want.items():
+    got = {"records": records, "threshold": thr, "qv": [res["q_before"], res["q_after"]],
+           "histogram": histo, "partitions_chosen": parts[0] > 1}
+    for key, val in gates.items():
         if got[key] != val:
-            raise AssertionError(f"race20 {key}: {got[key]} != {val}")
+            shown = (got[key], val) if key != "histogram" else ("rows differ", "")
+            raise AssertionError(f"{key}: {shown[0]} != {shown[1]}")
     splits = [(m, t - (stages[i - 1][0] if i else 0.0))
               for i, (t, m) in enumerate(stages)]
     out = {"records": records, "threshold": thr, "q_before": res["q_before"],
-           "q_after": res["q_after"], "gates": "enforced" if full else "not at this size",
+           "q_after": res["q_after"], "gates": sorted(gates) or "not at this size",
+           "partitions": parts[0], "passes": parts[1],
            "repaired_share": repaired_share(genome, polished, errors),
            "identical_to_genome": polished == genome,
            "resident_lanes_after_count": resident,
-           "resident_lanes_jasper_tpu_tpu_run": RACE_RESIDENT,
            "probe_launches": launches, "peak_device_bytes": peak,
            "wall_s": wall, "stage_seconds_since_previous": splits,
            "device_ms": events.summary(),
            "k7_ms": cuda_ms(lambda: histogram_rows(scanner.tab, k), 5),
            "table_bytes": int(scanner.tab.numel() * 4),
-           "count_peak_memory": peaks.summary(), "card": card}
+           "count_peak_memory": peaks.check(counter.PEAK_LANE_MULTIPLE), "card": card}
     log("driver path " + json.dumps(out))
-    worst = out["count_peak_memory"]["worst_lane_multiple"]
-    if worst > counter.PEAK_LANE_MULTIPLE:
-        raise AssertionError(
-            f"a counting step peaked at {worst:.3f} lanes per resident lane, past "
-            f"the budget's PEAK_LANE_MULTIPLE = {counter.PEAK_LANE_MULTIPLE}")
     with open(asm, "rb") as f:
         out["_draft"] = b"".join(f.read().split(b"\n")[1:])
     out["_scanner"] = scanner
     return out
+
+
+class PullLog:
+    """Host seconds of the level pulls (issuing them, and waiting in the
+    thunks) and of the host merges; the first pull on the card is held
+    against a blocking .cpu() of the same level."""
+
+    def __init__(self):
+        self.seconds = {"pull start": 0.0, "pull wait": 0.0, "host merge": 0.0}
+        self.compared = False
+
+    def _add(self, name, t0):
+        self.seconds[name] += time.perf_counter() - t0
+
+    def wraps(self) -> list:
+        from jasper_tpu_torch.count import counter
+        from jasper_tpu_torch.table.kmer_table import run_to_numpy
+
+        def pull(fn):
+            def started(h, keys, counts):
+                t0 = time.perf_counter()
+                thunk = fn(h, keys, counts)
+                self._add("pull start", t0)
+                want = None
+                if not self.compared:
+                    self.compared = True
+                    want = counter._trim_actives(*run_to_numpy(h, keys, counts))
+
+                def landed():
+                    t1 = time.perf_counter()
+                    got = thunk()
+                    self._add("pull wait", t1)
+                    if want is not None and not all(
+                            np.array_equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError("asynchronous level pull != blocking .cpu()")
+                    return got
+                landed.ready = thunk.ready
+                return landed
+            return started
+
+        def merge(fn):
+            def merged(streams):
+                t0 = time.perf_counter()
+                out = fn(streams)
+                self._add("host merge", t0)
+                return out
+            return merged
+
+        return [(counter, "start_level_pull", pull),
+                (counter, "merge_host_streams", merge)]
+
+
+def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, device,
+                   card: str, k: int = 25) -> list[dict]:
+    """Phase 7: the race reads through the partitioned and host-merge
+    branches of count_reads_to_host, forced as jasper_tpu forces them, each
+    held to phase 6's records (gated to race20's there) and table."""
+    import torch
+
+    from jasper_tpu_torch.count import counter
+    from jasper_tpu_torch.table.host_table import HostKmerTable
+
+    hint = max(os.path.getsize(reads) // 10, 1024)
+    branches = [
+        ("4 partitions in 2 passes", {"JT_COUNT_PARTITIONS": "4", "JT_COUNT_GROUPS": "2"},
+         dict(hash_size_hint=hint), "count: pass 2/2 counted"),
+        ("4 partitions in 4 passes", {"JT_COUNT_PARTITIONS": "4", "JT_COUNT_GROUPS": "4"},
+         dict(hash_size_hint=hint), "count: pass 4/4 counted"),
+        ("eviction and host merge", {}, dict(scale_finish_lanes=peak_resident // 3),
+         "count: host-merge finish done"),
+    ]
+    rows = []
+    pulls = PullLog()
+    for name, env, kw, line in branches:
+        peaks = PeakLog(device, k)
+        lines: list = []
+        t0 = time.perf_counter()
+
+        def tlog(msg, lines=lines, t0=t0):
+            lines.append((time.perf_counter() - t0, msg))
+            log(msg)
+
+        pulls.seconds = dict.fromkeys(pulls.seconds, 0.0)
+        os.environ.update(env)
+        try:
+            with patched(peaks.wraps() + pulls.wraps()):
+                host, rkeys, rcounts, dev_tab = counter.count_reads_to_host(
+                    [reads], k, device, tlog=tlog, **kw)
+            torch.cuda.synchronize(device)
+        finally:
+            for var in env:
+                del os.environ[var]
+        wall = time.perf_counter() - t0
+        msgs = [m for _, m in lines]
+        if not any(m.startswith(line) for m in msgs):
+            raise AssertionError(f"{name}: no '{line}' line: {msgs}")
+        if name.startswith("eviction") and not any("eviction started" in m for m in msgs):
+            raise AssertionError(f"{name}: nothing was evicted")
+        if len(rkeys) != records:
+            raise AssertionError(f"{name}: {len(rkeys)} records != {records}")
+        if dev_tab is None or not torch.equal(dev_tab, scan_tab):
+            raise AssertionError(f"{name}: device table from the merged run != "
+                                 "phase 6's scanner table")
+        at = dict((m.split(" (")[0], t) for t, m in lines)
+        counted = max(t for t, m in lines if "counted" in m or "counting done" in m)
+        row = {"branch": name, "env": env, **kw,
+               "records": len(rkeys), "wall_s": wall, "counting_s": counted,
+               **{f"{k_}_s": v for k_, v in pulls.seconds.items()},
+               "host_table_s": at["count: host table built"] - min(
+                   t for t, m in lines if "finish done" in m),
+               "device_build_s": wall - at["count: host table built"],
+               "stage_lines": lines,
+               "count_peak_memory": peaks.check(counter.PEAK_LANE_MULTIPLE),
+               "card": card}
+        if not rows:
+            # h recomputed on the host (the native mix32 inside the host
+            # table's build when no h is given) against pulling it
+            t1 = time.perf_counter()
+            HostKmerTable.from_sorted_run(k, rkeys, rcounts)
+            row["host_table_recomputing_h_s"] = time.perf_counter() - t1
+            row["host_mix32_s"] = row["host_table_recomputing_h_s"] - row["host_table_s"]
+            h_dev = torch.zeros(len(rkeys), dtype=torch.int32, device=device)
+            pinned = torch.empty(len(rkeys), dtype=torch.int32, pin_memory=True)
+            row["pull_h_ms"] = cuda_ms(lambda: pinned.copy_(h_dev, non_blocking=True), 5)
+            del h_dev, pinned
+        log("branch " + json.dumps(row))
+        rows.append(row)
+        del host, rkeys, rcounts, dev_tab
+        torch.cuda.empty_cache()
+    if not pulls.compared:
+        raise AssertionError("no level pull was held against a blocking copy")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -735,13 +994,22 @@ def main(argv=None) -> int:
     ap.add_argument("--genome-mbp", type=float, default=5.0,
                     help="phase 4: genome length in Mbp (the table scales with it)")
     ap.add_argument("--race-kb", type=int, default=RACE_KB,
-                    help="phases 5-6: race genome length in kb (the gates on "
+                    help="phases 5-7: race genome length in kb (the gates on "
                          "records, threshold and QV hold at 20000 only)")
+    ap.add_argument("--big-kb", type=int, default=BIG_KB,
+                    help="phase 8: genome length in kb (gated at 100000 only)")
+    ap.add_argument("--phases", default="3,4,5,6,7,8",
+                    help="phases to run after 1-2, comma-separated (7 needs 6)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--workdir", default=None,
                     help="scratch for db.jf/asm.fa/outputs (default "
                          ".smoke_work/ in the checkout; removed at the end)")
     args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+    if 7 in phases and 6 not in phases:
+        ap.error("phase 7 holds its tables against phase 6's")
+    if not phases & {6, 8}:
+        ap.error("the kernels line needs a driver path: phase 6 or 8")
 
     import torch
 
@@ -749,6 +1017,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     # outside a checkout this import fails and the script exits non-zero
+    from jasper_tpu_torch.count.counter import PEAK_LANE_MULTIPLE
     from jasper_tpu_torch.table import _build
     from jasper_tpu_torch.utils.device import resolve_device
 
@@ -767,41 +1036,87 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line:
             log("ptxas " + line.strip())
 
-    rng = np.random.default_rng(args.seed)
-    probe_rows = phase_probe(rng, device, card)
-
     workdir = args.workdir or os.path.join(HERE, ".smoke_work")
     os.makedirs(workdir, exist_ok=True)
-    runner_res = phase_runner(args, rng, device, workdir)
-    torch.cuda.empty_cache()
-    asm, reads, genome, errors = race_data(workdir, args.race_kb, args.seed)
-    count_res = phase_count(reads, device, card)
-    drv = phase_driver(asm, reads, genome, errors, device, card,
-                       full=args.race_kb == RACE_KB)
-    shape = phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device)
+    # race100's data (~280 s of host work on one core) is made while phases
+    # 3-7 run. Its files are on disk beside race20's until phase 8, which
+    # deletes race20's first: no more disk than phase 8's own run takes.
+    big = start_race_data(workdir, "race100", args.big_kb, args.seed) if 8 in phases else None
+    try:
+        drivers, shapes, probe_rows = run_phases(args, phases, device, card, workdir, big)
+    finally:
+        if big is not None and big.proc.poll() is None:
+            big.proc.kill()
+            big.proc.wait()
     if not args.workdir:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    max_err = max([r["max_abs_err"] for r in probe_rows] + [shape["max_abs_err"]])
+    max_err = max([r["max_abs_err"] for r in probe_rows + shapes])
     kernels = {"kernels": [{
         "name": "bucket_probe",
         "route": "cuda",
         "source": "jasper_tpu_torch/csrc/probe.cu",
         "replaces": "jasper_tpu/table/pallas_probe.py:73",
-        "launches": drv["probe_launches"],
+        "launches": sum(d["probe_launches"] for d in drivers),
         "max_abs_err": max_err,
-        "ms": shape["ms"],
-        "plain_ms": shape["plain_ms"],
+        "ms": shapes[0]["ms"],
+        "plain_ms": shapes[0]["plain_ms"],
     }]}
-    log(f"probe launches: runner path {runner_res['probe_launches']}, "
-        f"driver path {drv['probe_launches']}; count phase distinct "
-        f"{count_res['distinct']}")
+    log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
+        f"worst lane multiple per driver path "
+        f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
+        f"(limit {PEAK_LANE_MULTIPLE})")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_phases(args, phases, device, card: str, workdir: str, big):
+    """Phases 3-8; ``big`` waits for race100's data. Returns the driver
+    paths' reports, the main-shape probe rows and phase 3's rows."""
+    import torch
+
+    rng = np.random.default_rng(args.seed)
+    probe_rows = phase_probe(rng, device, card) if 3 in phases else []
+    if 4 in phases:
+        phase_runner(args, rng, device, workdir)
+        torch.cuda.empty_cache()
+    drivers, shapes = [], []
+    if phases & {5, 6}:
+        asm, reads, genome, errors = race_data(workdir, "race", args.race_kb, args.seed)
+        if 5 in phases:
+            phase_count(reads, device, card)
+        if 6 in phases:
+            full = args.race_kb == RACE_KB
+            drv = phase_driver(asm, reads, genome, errors, device, card, gates={
+                "records": RACE_RECORDS, "threshold": 5, "qv": list(RACE_QV)}
+                if full else {})
+            drivers.append(drv)
+            scanner = drv.pop("_scanner")
+            shapes.append(phase_main_shape(scanner, drv.pop("_draft"), device))
+            if 7 in phases:
+                peak_resident = max(r for _n, r, _b, _x in
+                                    drv["count_peak_memory"]["per_step"])
+                phase_branches(reads, scanner.tab, drv["records"], peak_resident,
+                               device, card)
+            del scanner
+        shutil.rmtree(os.path.dirname(reads))  # race20's files go before race100's run
+        torch.cuda.empty_cache()
+    if big is not None:
+        asm, reads, genome, errors = big()
+        gates = {"partitions_chosen": True}
+        if args.big_kb == BIG_KB:
+            from jasper_tpu_torch.count.histogram import read_histogram
+
+            gates.update(records=BIG_RECORDS, threshold=5, qv=list(BIG_QV),
+                         histogram=read_histogram(os.path.join(HERE, BIG_HISTO)))
+        drv = phase_driver(asm, reads, genome, errors, device, card, gates)
+        drivers.append(drv)
+        shapes.append(phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device))
+    return drivers, shapes, probe_rows
 
 
 if __name__ == "__main__":

@@ -4,32 +4,65 @@ as sort + segment-sum.
 
 Code chunks stream from the reads (jasper_tpu.io.fastx.stream_codes, parsed
 on a background thread), every window is extracted and canonicalized on the
-device, the windows collapse into sorted runs that accumulate in an LSM
-ladder (count/sorted_runs.py), one device merge finishes them, and the
-waterfall build (table/build.py) makes the lookup table on the device. The
-distinct records then land on the host for the host table, the histogram
-and the `.jf`.
+device, and the windows collapse into sorted runs that accumulate in LSM
+ladders (count/sorted_runs.py). The distinct records then land on the host
+for the host table, the histogram and the `.jf`, and the lookup table is
+built on the device (table/build.py) for the polish scan.
 
-Only jasper_tpu's classic single-ladder finish is ported. A distinct set
-past the device's finish budget (jasper_tpu's host-merge finish and
-mid-count eviction) or one that needs hash-partitioned counting raises
-NotImplementedError: no slower path is taken silently.
+count_reads_to_host picks the finish by size, as jasper_tpu does:
+
+  * classic: one ladder, one device merge of every level, the table built
+    from the merged run on the device and the records pulled;
+  * host merge: a ladder past the finish budget is pulled level by level
+    and merged on the host (native k-way merge); one that passes twice the
+    budget while counting is evicted to the host then, and counting goes on
+    in a fresh ladder;
+  * partitioned: a -s estimate past the finish budget counts in P hash
+    partitions (the top hash bits), in G passes over the reads that each
+    hold P/G ladders fed by one stage sort per window; every ladder is
+    finished on the device and pulled, and the partitions concatenate in
+    hash order on the host. A partition slice overflow redoes the count in
+    P passes of the extraction filter.
+
+The host-merged branches push the merged run back and build the device
+table from it when it fits the card; otherwise the scanner uploads the host
+table. Device->host pulls are asynchronous (pinned buffers, a side stream
+and an event). The host merge needs the native library and raises without
+it: there is no slower numpy path.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable
 
 import numpy as np
 import torch
 
+from jasper_tpu.io import native_jf
 from jasper_tpu.io.fastx import stream_codes, total_file_bytes
 from jasper_tpu.ops.kmer import words_per_kmer
 
-from jasper_tpu_torch.count.sorted_runs import RunAccumulator, extract_windows
+from jasper_tpu_torch.count.sorted_runs import (
+    PartitionedRunAccumulator,
+    PartitionSliceOverflow,
+    RunAccumulator,
+    extract_windows,
+    make_run,
+)
+from jasper_tpu_torch.ops.hashing import M32
+from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.table.build import build_table
-from jasper_tpu_torch.table.host_table import HostKmerTable
+from jasper_tpu_torch.table.host_table import HostKmerTable, _require_native
 from jasper_tpu_torch.table.kmer_table import run_to_numpy
+from jasper_tpu_torch.table.layout import (
+    PAD_BUCKETS,
+    ROW_U32,
+    adaptive_load,
+    slot_words_for,
+    slots_for,
+)
+from jasper_tpu_torch.table.probe import to_i32_bits
 from jasper_tpu_torch.utils.device import available_bytes
 
 # Device bytes a resident lane costs at the peak of counting, in lanes of
@@ -41,19 +74,61 @@ from jasper_tpu_torch.utils.device import available_bytes
 # flushes and merges, 7.34 in the finish (23,652,127,232 B at 100,663,008
 # resident lanes, levels of 64 and 32 units merged at 2 x 64 units). A
 # finish whose smaller level is near empty merges the same 2 x 64 units from
-# 2/3 of those lanes: 7.34 * 1.5 = 11.0, rounded up.
+# 2/3 of those lanes: 7.34 * 1.5 = 11.0, rounded up. The other branches stay
+# under it (same card): split flushes 4.92, a one-ladder pass's finish 7.44,
+# the host-merge pull 3.69, the device build from a merged run 4.07, and the
+# race100 count (536,869,376 resident lanes in 4 partition ladders) 4.92.
 PEAK_LANE_MULTIPLE = 12
 
-_NOT_PORTED = ("the host-merge finish, mid-count eviction and partitioned "
-               "counting are not ported yet (ROADMAP queue 1 item 7)")
+# Share of the card's available memory that a partitioned pass's resident
+# ladders may fill before the eviction valve: jasper_tpu's
+# PARTITION_RESIDENT_BYTES, 5.5 GiB of a 16 GiB chip. The rest carries the
+# stage flush, the ladders' merges and finishes and the pulls in flight.
+RESIDENT_SHARE = 5.5 / 16
+
+# Share of the card's available memory that the merged run (pushed as
+# int64) and the table built from it may take: jasper_tpu's
+# JT_DEV_BUILD_BYTES, 8 GiB of a 16 GiB chip.
+DEV_BUILD_SHARE = 0.5
+
+CODES_CACHE_BYTES = 16 << 30  # jasper_tpu's JT_CODES_CACHE_BYTES default
+
+
+def lane_bytes(k: int) -> int:
+    """Device bytes of one run lane: h, W key words and the count, int64."""
+    return 8 * (words_per_kmer(k) + 2)
+
+
+def _env_int(name: str) -> int | None:
+    """jasper_tpu's integer environment overrides (JT_*): None when unset."""
+    v = os.environ.get(name, "")
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name}={v!r} is not an integer") from None
+
+
+def _env_pow2(name: str) -> int | None:
+    v = _env_int(name)
+    if v is not None and (v < 1 or v & (v - 1)):
+        raise ValueError(f"{name}={v} must be a power of two")
+    return v
 
 
 def finish_budget_lanes(device: torch.device, k: int) -> int:
     """Resident lanes that counting and its merge-all finish can hold on
     ``device``, from the memory available there now (jasper_tpu's 256 M-lane
     constant was sized for a 16 GB TPU)."""
-    lane_bytes = 8 * (words_per_kmer(k) + 2)
-    return available_bytes(device) // (PEAK_LANE_MULTIPLE * lane_bytes)
+    return available_bytes(device) // (PEAK_LANE_MULTIPLE * lane_bytes(k))
+
+
+def partition_resident_bytes(device: torch.device) -> int:
+    """Bytes a partitioned pass's resident ladders may hold on ``device``
+    before they evict (JT_PARTITION_RESIDENT_BYTES overrides)."""
+    env = _env_int("JT_PARTITION_RESIDENT_BYTES")
+    return env if env is not None else int(available_bytes(device) * RESIDENT_SHARE)
 
 
 def _prefetch(it, depth: int = 3):
@@ -90,12 +165,22 @@ def _prefetch(it, depth: int = 3):
         yield item
 
 
-def count_reads(paths: Iterable[str], k: int, device, chunk_len: int = 1 << 23,
-                max_lanes: int | None = None) -> RunAccumulator:
-    """Stream all reads in ``paths`` through the device ladder; returns the
-    accumulator (finish it with _finish_to_table). Raises
-    NotImplementedError when the resident lanes pass ``max_lanes`` between
-    chunks, where jasper_tpu would evict its levels to the host."""
+def count_reads(paths: Iterable[str], k: int, device, n_slots: int | None = None,
+                chunk_len: int = 1 << 23, progress=None, on_full_run=None,
+                partition=None, codes_sink=None, codes_source=None,
+                accumulator=None):
+    """Stream all reads in ``paths`` through a device ladder and return the
+    accumulator (finish it with _finish_to_table, or pull it to the host).
+
+    on_full_run(acc) runs before a chunk whenever the ladder's settled lanes
+    pass ``n_slots``: the caller evicts the levels to the host, and counting
+    goes on in a fresh ladder (or in the injected ``accumulator``, which the
+    callback empties itself). partition=(p, P) counts only the p-th of P
+    hash partitions. codes_sink collects the parsed (codes, fill) chunks and
+    codes_source replays them in place of parsing. progress(n_chunks,
+    resident lanes) runs after every chunk."""
+    if (on_full_run is None) != (n_slots is None):
+        raise ValueError("on_full_run and n_slots go together")
     paths = list(paths)
     total_bytes = total_file_bytes(paths)
     # clamp the chunk to the input size (next power of two; .gz estimated at
@@ -105,16 +190,25 @@ def count_reads(paths: Iterable[str], k: int, device, chunk_len: int = 1 << 23,
         cap = 1 << max(14, (max(est, 4 * k) - 1).bit_length())
         chunk_len = min(chunk_len, cap)
     n_windows = chunk_len - k + 1
-    acc = RunAccumulator(unit=max(1 << 14, n_windows // 8),
-                         stage_lanes=8 * n_windows)
+    acc = accumulator if accumulator is not None else RunAccumulator(
+        unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
     # use_native=True: the C++ FASTQ parser or an error, never the ~100x
     # slower Python parser in silence (SAM input has only the Python one)
-    for codes, _fill in _prefetch(stream_codes(paths, k, chunk_len, use_native=True)):
-        if max_lanes is not None and acc.n_resident_lanes() > max_lanes:
-            raise NotImplementedError(
-                f"counting holds {acc.n_resident_lanes()} resident lanes, past "
-                f"{max_lanes} on {device}; {_NOT_PORTED}")
-        acc.push_raw(*extract_windows(torch.from_numpy(codes).to(device), k))
+    chunks = (iter(codes_source) if codes_source is not None
+              else _prefetch(stream_codes(paths, k, chunk_len, use_native=True)))
+    n_chunks = 0
+    for codes, fill in chunks:
+        if codes_sink is not None:
+            codes_sink.append((codes, fill))
+        if on_full_run is not None and acc.n_settled_lanes() > n_slots:
+            on_full_run(acc)
+            if accumulator is None:
+                acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
+        acc.push_raw(*extract_windows(torch.from_numpy(codes).to(device), k,
+                                      partition=partition))
+        n_chunks += 1
+        if progress is not None:
+            progress(n_chunks, acc.n_resident_lanes())
     return acc
 
 
@@ -135,48 +229,270 @@ def pull_run_records(run):
     return run_to_numpy(h[:n], keys[:n], counts[:n])
 
 
+def count_sequences(seqs: Iterable[str], k: int, device, n_slots: int = 1 << 16):
+    """Count the k-mers of in-memory sequences into a device table (int32
+    bits), as jasper_tpu's count_sequences does; an input shorter than k
+    gives an empty table of ``n_slots`` slots."""
+    from jasper_tpu.ops.codes import CODE_N, encode
+
+    parts = []
+    for s in seqs:
+        parts.append(encode(s))
+        parts.append(np.array([CODE_N], dtype=np.uint8))
+    codes = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+    if len(codes) < k:
+        S = ROW_U32 // slot_words_for(words_per_kmer(k))
+        n_buckets = max(1, -(-n_slots // S))
+        return torch.zeros((n_buckets + PAD_BUCKETS, ROW_U32), dtype=torch.int32,
+                           device=device)
+    keys, valid = canonical_windows_fast(torch.from_numpy(codes).to(device), k)
+    h, kk, cc, n = make_run(keys, torch.ones_like(keys[:, 0]), valid)
+    return build_table((h, kk, cc, int(n)), k)
+
+
+# -- device -> host pulls and the host merge ---------------------------------
+
+
+def _trim_actives(h, keys, counts):
+    """A pulled level (actives first) -> its actives."""
+    n = int(np.count_nonzero(counts))
+    return h[:n], keys[:n], counts[:n]
+
+
+def start_level_pull(h, keys, counts):
+    """Start the device->host copy of one level run and return a thunk that
+    gives its actives as uint32 numpy (h [n], keys [n, W], counts [n]).
+
+    On a card the copies go, as int32 bits, into one pinned host buffer on
+    a side stream, behind the work already queued, and an event marks their
+    end: nothing waits, so counting goes on while they land. thunk.ready()
+    says whether the event has passed; the thunk waits for it before numpy
+    reads the buffer. torch's pinned allocator keeps freed buffers for the
+    next pull. On the CPU the thunk returns the arrays at once. h is pulled,
+    not recomputed on the host: on an H100 the h of 55.7 M records crossed
+    the link in 4.2 ms, where native_jf.mix32_batch took 0.30 s (PERF.md)."""
+    L, W = keys.shape
+    bits = [to_i32_bits(a).reshape(-1) for a in (h, keys, counts)]
+
+    def split(flat):
+        return _trim_actives(flat[:L], flat[L : L * (W + 1)].reshape(L, W),
+                             flat[L * (W + 1):])
+
+    if h.device.type != "cuda":
+        out = split(torch.cat(bits).numpy().view(np.uint32))
+        thunk = lambda: out  # noqa: E731
+        thunk.ready = lambda: True
+        return thunk
+    host = torch.empty(L * (W + 2), dtype=torch.int32, pin_memory=True)
+    side = torch.cuda.Stream(h.device)
+    side.wait_stream(torch.cuda.current_stream(h.device))
+    done = torch.cuda.Event()
+    with torch.cuda.stream(side):
+        off = 0
+        for b in bits:
+            host[off : off + b.numel()].copy_(b, non_blocking=True)
+            b.record_stream(side)  # its memory is not reused before the copy ends
+            off += b.numel()
+        done.record(side)
+    del bits
+
+    def thunk():
+        done.synchronize()
+        return split(host.numpy().view(np.uint32))
+
+    thunk.ready = done.query
+    return thunk
+
+
+def pull_level_records(h, keys, counts):
+    """One level run -> host (h, keys, counts), its actives (blocking)."""
+    return start_level_pull(h, keys, counts)()
+
+
+def start_all_level_pulls(acc):
+    """Flush the ladder's stage and start a pull of every level, emptying
+    the ladder; returns the thunks, in level order."""
+    acc.flush_stage()
+    return [start_level_pull(*acc.levels.pop(j)) for j in sorted(acc.levels)]
+
+
+def pull_all_levels(acc):
+    """Blocking start_all_level_pulls: the non-empty (h, keys, counts)."""
+    streams = [t() for t in start_all_level_pulls(acc)]
+    return [s for s in streams if len(s[0])]
+
+
+def merge_host_streams(streams):
+    """Merge (h, key)-sorted streams of distinct keys on the host with the
+    native k-way heap (counts summed, saturating at 2^32-1). Raises when the
+    native library is missing."""
+    _require_native()
+    return native_jf.merge_runs_multi(streams)
+
+
+def finish_runs_to_host(acc, extra_streams=()):
+    """Pull every level of ``acc`` and merge them on the host with
+    ``extra_streams`` (the evicted ones): (h, keys, counts) in (h, key)
+    order, or None when nothing was counted."""
+    streams = list(extra_streams) + pull_all_levels(acc)
+    return merge_host_streams(streams) if streams else None
+
+
+# -- count_reads_to_host and its branches ------------------------------------
+
+
+def _empty_result(k: int):
+    W = words_per_kmer(k)
+    host_table = HostKmerTable.from_sorted_run(
+        k, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32))
+    return host_table, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32), None
+
+
+def _push_u32(a: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy -> int64 tensor on ``device``, crossing as int32 bits."""
+    bits = torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+    return bits.to(device).to(torch.int64) & M32
+
+
+def _device_table_from_host_run(rh, rkeys, rcounts, k: int, device):
+    """Push the merged run and build the scan table on the card (K5), or
+    None when the run as int64 and the table would take more than
+    DEV_BUILD_SHARE of the memory available there: the scanner then
+    uploads the host table. The build's int64 indices have no 2^31-word
+    limit."""
+    N, W = rkeys.shape
+    S = ROW_U32 // slot_words_for(W)
+    n_buckets = max(1, -(-slots_for(max(N, 1), adaptive_load(N, k)) // S))
+    need = 8 * (W + 2) * N + (n_buckets + PAD_BUCKETS) * ROW_U32 * 4
+    if need > available_bytes(device) * DEV_BUILD_SHARE:
+        return None
+    run = tuple(_push_u32(a, device) for a in (rh, rkeys, rcounts))
+    return build_table((*run, N), k)
+
+
+def _host_result(rh, rkeys, rcounts, k: int, device, _log):
+    """Merged host records -> (host table, keys, counts, device table)."""
+    host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
+    _log("count: host table built")
+    dev_tab = _device_table_from_host_run(rh, rkeys, rcounts, k, device)
+    if dev_tab is None:
+        _log(f"count: device scan table not built ({len(rkeys)} records do "
+             f"not fit {DEV_BUILD_SHARE} of {device}'s free memory); the "
+             "scanner uploads the host table")
+    else:
+        _log("count: device scan table built (from merged run)")
+    return host_table, rkeys, rcounts, dev_tab
+
+
+def _host_finish_from_parts(parts, k: int, device, _log):
+    """Per-partition host streams, each in (h, key) order, concatenated in
+    partition order (the top hash bits, so the whole is in (h, key) order)
+    -> the counting result."""
+    if not parts:
+        return _empty_result(k)
+    rh = np.concatenate([p[0] for p in parts])
+    rkeys = np.concatenate([p[1] for p in parts], axis=0)
+    rcounts = np.concatenate([p[2] for p in parts])
+    del parts
+    _log(f"count: partitioned finish done ({len(rkeys)} records)")
+    return _host_result(rh, rkeys, rcounts, k, device, _log)
+
+
 def count_reads_to_host(paths: Iterable[str], k: int, device,
                         hash_size_hint: int | None = None,
-                        chunk_len: int = 1 << 23, tlog=None):
-    """Driver counting entry (jasper_tpu's classic count_reads_to_host with
+                        chunk_len: int = 1 << 23, tlog=None,
+                        scale_finish_lanes: int | None = None):
+    """Driver counting entry (jasper_tpu's count_reads_to_host with
     return_device_table=True): count the reads on ``device`` and land the
     distinct set on the host. Returns (host_table, keys uint32 [N, W],
     counts uint32 [N], device table) with the records in (mix32, key)
-    order; the device table (int32 bits, built from the finished run) is
-    byte-identical to host_table.tab, or None for empty input.
+    order; the device table (int32 bits) is byte-identical to
+    host_table.tab, or None for empty input or a table too large to build
+    on the card.
 
     hash_size_hint is jellyfish's -s estimate of the distinct keys (reads
-    bytes / 10): past the finish budget jasper_tpu counts in hash
-    partitions, which raises here, as does a ladder that outgrows the
-    budget while counting (where jasper_tpu evicts it to the host at twice
-    the budget) or at the finish."""
+    bytes / 10). The finish budget in lanes is ``scale_finish_lanes``, else
+    JT_SCALE_FINISH_LANES, else finish_budget_lanes of the card; past it
+    the estimate picks P hash partitions (JT_COUNT_PARTITIONS overrides),
+    and the partition resident budget the G passes (JT_COUNT_GROUPS). The
+    module docstring gives the branches."""
+    paths = list(paths)
     device = torch.device(device)
 
     def _log(msg):
         if tlog is not None:
             tlog(msg)
 
-    budget = finish_budget_lanes(device, k)
+    budget = scale_finish_lanes
+    if budget is None:
+        budget = _env_int("JT_SCALE_FINISH_LANES")
+    if budget is None:
+        budget = finish_budget_lanes(device, k)
     _log(f"count: finish budget {budget} lanes on {device}")
-    if hash_size_hint and hash_size_hint > budget:
-        raise NotImplementedError(
-            f"-s estimate {hash_size_hint} distinct k-mers exceeds the finish "
-            f"budget of {budget} lanes on {device}, which needs partitioned "
-            f"counting; {_NOT_PORTED}")
-    acc = count_reads(paths, k, device, chunk_len=chunk_len,
-                      max_lanes=max(budget, 1024))
+    est = hash_size_hint or 0
+    P = _env_pow2("JT_COUNT_PARTITIONS")
+    if P is None:
+        P = 1
+        while est // P > budget and P < 16:
+            P *= 2
+    seekable = all(isinstance(q, str) for q in paths)
+    if P > 1:
+        G = _env_pow2("JT_COUNT_GROUPS")
+        if G is not None and P % G:
+            raise ValueError(f"JT_COUNT_GROUPS={G} must divide the {P} partitions")
+        resident_bytes = partition_resident_bytes(device)
+        if G is None:
+            # the -s estimate overcounts distinct keys ~3x on coverage data
+            # and unmerged levels hold ~2x the distinct keys in lanes
+            # (jasper_tpu's sizing); the valve catches a low estimate
+            est_lanes = est // 3 * 2
+            G = 1
+            while G < P and est_lanes * lane_bytes(k) // G > resident_bytes:
+                G *= 2
+        if G > 1 and not seekable:
+            G = 1  # one pass and the eviction valve
+        _log(f"count: {P} hash partitions in {G} passes (-s estimate {est}, "
+             f"resident budget {resident_bytes} B, {lane_bytes(k)} B lanes)")
+        try:
+            return _count_partitioned_single_pass(
+                paths, k, device, P, G, chunk_len,
+                resident_bytes // lane_bytes(k), _log)
+        except PartitionSliceOverflow:
+            if not seekable:
+                raise
+            _log("count: partition slice overflow — redoing with the P-pass filter")
+        return _count_partitioned(paths, k, device, P, chunk_len, budget, _log)
+
+    evicted: list = []
+    pending: list = []
+
+    def _materialize_pending():
+        evicted.extend(s for s in (t() for t in pending) if len(s[0]))
+        pending.clear()
+
+    def _evict(acc_):
+        # the previous eviction's pulls had the whole interval since to land
+        _materialize_pending()
+        pending.extend(start_all_level_pulls(acc_))
+        _log(f"count: eviction started ({len(pending)} level runs in flight, "
+             f"{sum(len(s[0]) for s in evicted)} records landed)")
+
+    acc = count_reads(paths, k, device, n_slots=max(2 * budget, 1024),
+                      chunk_len=chunk_len, on_full_run=_evict)
     resident = acc.n_resident_lanes()
     _log(f"count: device counting done ({resident} resident lanes)")
-    if resident > budget:
-        raise NotImplementedError(
-            f"{resident} resident lanes exceed the finish budget of {budget} "
-            f"on {device}; {_NOT_PORTED}")
+    _materialize_pending()
+    if evicted or resident > budget:
+        merged = finish_runs_to_host(acc, extra_streams=evicted)
+        if merged is None:
+            return _empty_result(k)
+        rh, rkeys, rcounts = merged
+        _log(f"count: host-merge finish done ({len(rkeys)} records)")
+        return _host_result(rh, rkeys, rcounts, k, device, _log)
+
     dev_tab, run = _finish_to_table(acc, k)
     if run is None:
-        W = words_per_kmer(k)
-        host_table = HostKmerTable.from_sorted_run(
-            k, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32))
-        return host_table, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32), None
+        return _empty_result(k)
     _log("count: device scan table built")
     rh, rkeys, rcounts = pull_run_records(run)
     del run
@@ -184,3 +500,114 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
     host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
     _log("count: host table built")
     return host_table, rkeys, rcounts, dev_tab
+
+
+def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
+                       budget: int, _log):
+    """P passes over the reads, pass p counting partition p alone through
+    the extraction filter (no slice capacity): the fallback after a
+    PartitionSliceOverflow. The parsed code chunks of pass 0 are kept in
+    host memory for the later passes when the reads are at most
+    JT_CODES_CACHE_BYTES. Each pass's levels are pulled while the next
+    pass counts, and merged on the host."""
+    cache_cap = _env_int("JT_CODES_CACHE_BYTES")
+    use_cache = total_file_bytes(paths) <= (CODES_CACHE_BYTES if cache_cap is None
+                                            else cache_cap)
+    codes_cache: list | None = [] if use_cache else None
+    parts: list = []
+    pending: list = []
+    valve_streams: list = []
+
+    def _materialize_prev():
+        if pending:
+            streams = [s for s in (t() for t in pending.pop()) if len(s[0])]
+            if streams:
+                parts.append(merge_host_streams(streams))
+
+    def _valve(acc_):
+        # a pass that still outgrows the budget (the estimate lied) evicts
+        # its levels; the pass's merge takes any number of streams
+        valve_streams.extend(pull_all_levels(acc_))
+        _log(f"count: partition-pass eviction ({len(valve_streams)} streams)")
+
+    for p in range(P):
+        acc = count_reads(
+            paths, k, device, n_slots=budget, chunk_len=chunk_len,
+            on_full_run=_valve, partition=(p, P),
+            codes_sink=codes_cache if use_cache and p == 0 else None,
+            codes_source=codes_cache if use_cache and p > 0 else None)
+        _materialize_prev()  # the previous pass's pulls have landed by now
+        thunks = start_all_level_pulls(acc)
+        thunks.extend((lambda s=s: s) for s in valve_streams)
+        valve_streams.clear()
+        pending.append(thunks)
+        _log(f"count: partition pass {p + 1}/{P} counted, pull in flight")
+    _materialize_prev()
+    return _host_finish_from_parts(parts, k, device, _log)
+
+
+def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
+                                   chunk_len: int, n_slots: int, _log):
+    """Grouped partitioned counting: G passes over the reads, pass g
+    holding the hash subrange [g/G, (g+1)/G) as P/G partition ladders
+    (PartitionedRunAccumulator), so every window of a pass is extracted and
+    stage-sorted once. After a pass each ladder merges on the device and
+    its run is pulled while the next ladder merges and the next pass
+    counts; pulls that have landed are taken between chunks so their device
+    copies go. If the resident ladders pass ``n_slots`` (the estimate lied
+    low), all of them evict to the host at once; the partitions' streams
+    merge on the host."""
+    PL = P // G
+    bits_total = P.bit_length() - 1
+    n_windows = chunk_len - k + 1
+    part_streams: dict[int, list] = {p: [] for p in range(P)}
+    pending: list = []  # (global partition, thunk) of pulls in flight
+
+    def _take(p, thunk):
+        s = thunk()
+        if len(s[0]):
+            part_streams[p].append(s)
+
+    def _materialize_pending():
+        for p, t in pending:
+            _take(p, t)
+        pending.clear()
+
+    def _materialize_landed(_n_chunks, _resident):
+        for i in reversed([i for i, (_, t) in enumerate(pending) if t.ready()]):
+            _take(*pending.pop(i))
+
+    for g in range(G):
+        p0 = g * PL
+        # half the single-ladder stage: the ladders ride beside its sort
+        pacc = PartitionedRunAccumulator(
+            PL, unit=max(1 << 14, n_windows // 8), stage_lanes=4 * n_windows,
+            p0=p0, bits_total=bits_total)
+
+        def _evict(_acc, pacc=pacc, p0=p0, g=g):
+            # every ladder at once: evicting one regains 1/PL of the budget
+            # and the evicted keys come back as duplicates
+            _materialize_pending()
+            for pl, acc in enumerate(pacc.accs):
+                pending.extend((p0 + pl, t) for t in start_all_level_pulls(acc))
+            _log(f"count: pass {g + 1}/{G} ladder eviction "
+                 f"({len(pending)} level runs in flight)")
+
+        count_reads(paths, k, device, n_slots=n_slots, chunk_len=chunk_len,
+                    progress=_materialize_landed, on_full_run=_evict,
+                    partition=(g, G) if G > 1 else None, accumulator=pacc)
+        pacc.drain()
+        _log(f"count: pass {g + 1}/{G} counted "
+             f"({pacc.n_resident_lanes()} resident lanes, {PL} ladders)")
+        _materialize_pending()  # the previous pass's pulls had a pass to land
+        for pl, acc in enumerate(pacc.accs):
+            run = acc.finish()
+            if run is not None and run[3]:
+                n = run[3]
+                pending.append((p0 + pl, start_level_pull(*(a[:n] for a in run[:3]))))
+            del run  # the merged run goes before the next ladder merges
+        del pacc
+    _materialize_pending()
+    parts = [ss[0] if len(ss) == 1 else merge_host_streams(ss)
+             for ss in part_streams.values() if ss]
+    return _host_finish_from_parts(parts, k, device, _log)

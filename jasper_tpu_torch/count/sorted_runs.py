@@ -1,5 +1,5 @@
 """Sorted-run k-mer accumulation in torch (counterpart of
-jasper_tpu/count/sorted_runs.py:40-490, kernel family K4).
+jasper_tpu/count/sorted_runs.py:40-581, kernel family K4).
 
 A *run* is a triple of tensors (h [B], keys [B, W], counts [B]), each an
 int64 holding a uint32 (ops/hashing.py), where
@@ -91,6 +91,24 @@ def _run_lengths(sh, skeys, svalid):
     return torch.where(rep, run_end - pos + 1, 0)
 
 
+def make_run(keys, counts, valid):
+    """Windows with multiplicities -> compacted run (jasper_tpu's make_run).
+    keys int64 [B, W], counts int64 [B] (values < 2^32), valid bool [B];
+    a key's total is the sum of its lanes' counts, which must fit 2^32 (true
+    for one chunk). Returns (h, keys, counts, n_active)."""
+    h = mix32(keys)
+    counts = torch.where(valid, counts, 0)
+    sh, skeys, scounts = _sort_by_key(h, keys, counts)
+    same = _same_as_prev(sh, skeys, scounts)
+    start = ~same & (scounts > 0)
+    is_last = torch.ones_like(same)
+    is_last[:-1] = ~same[1:]
+    csum = torch.cumsum(scounts, dim=0)
+    end = torch.where(is_last, csum, csum[-1:] if csum.numel() else 0)
+    run_end = torch.flip(torch.cummin(torch.flip(end, (0,)), dim=0).values, (0,))
+    return _compact(sh, skeys, torch.where(start, run_end - csum + scounts, 0))
+
+
 def make_run_ones(keys, valid):
     """Windows -> UNCOMPACTED run, multiplicity 1 per valid lane (the
     counting hot path): one multi-key sort, totals are run lengths, and
@@ -143,6 +161,54 @@ def flush_stage(key_parts, valid_parts):
     keys = torch.cat(list(key_parts))
     valid = torch.cat(list(valid_parts))
     return _compact(*make_run_ones(keys, valid))
+
+
+def _check_pow2(P: int) -> None:
+    if P < 1 or P & (P - 1):
+        raise ValueError(f"P = {P}: the partition count must be a power of two")
+
+
+def flush_stage_split(key_parts, valid_parts, P: int, C: int, p0: int = 0,
+                      bits_total: int | None = None):
+    """Staged raw windows -> one compacted run split into P hash-partition
+    slices (jasper_tpu's _flush_stage_split_jit): every window is sorted once
+    and each partition's actives, one contiguous (h, key) range of the
+    compacted run, ship as a C-lane run with its actives first.
+
+    The slices cover the global partitions [p0, p0 + P) of 2^bits_total
+    (default log2 P), the p-th being the p-th range of the top bits_total
+    hash bits; the caller's extraction filter must already hold the actives
+    to that hash subrange. Returns (hs, keys, counts) as P-tuples, n_act (a
+    list of P ints) and ovf, the number of actives past a slice's capacity
+    (nonzero only under a skewed hash: the caller then redoes the count
+    with the P-pass filter).
+
+    jasper_tpu slices at a clamped start and rolls the window, so its dead
+    lanes hold other partitions' lanes; here they are zeros."""
+    _check_pow2(P)
+    h, skeys, totals, n_act = flush_stage(key_parts, valid_parts)
+    B, W = skeys.shape
+    bits = P.bit_length() - 1 if bits_total is None else bits_total
+    # dead lanes sort above every live h, as jasper_tpu's U32_MAX does
+    hkey = torch.where(totals > 0, h, U32_MAX)
+    bvals = (torch.arange(1, P, dtype=torch.int64, device=h.device) + p0) << (32 - bits)
+    inner = torch.searchsorted(hkey, bvals)
+    # one host read of the P + 1 bounds: the ladders need the counts anyway
+    bounds = torch.cat([inner.new_zeros(1), inner, n_act.reshape(1)]).tolist()
+    Cc = min(C, B)
+    hs, ks, cs, nacts = [], [], [], []
+    ovf = 0
+    for p in range(P):
+        s, e = bounds[p], bounds[p + 1]
+        n = min(e - s, Cc)
+        hp, kp, cp = h.new_zeros(Cc), skeys.new_zeros((Cc, W)), totals.new_zeros(Cc)
+        hp[:n], kp[:n], cp[:n] = h[s:s + n], skeys[s:s + n], totals[s:s + n]
+        hs.append(hp)
+        ks.append(kp)
+        cs.append(cp)
+        nacts.append(n)
+        ovf += max(e - s - Cc, 0)
+    return tuple(hs), tuple(ks), tuple(cs), nacts, ovf
 
 
 def extract_windows(codes, k: int, partition=None):
@@ -244,6 +310,12 @@ class RunAccumulator:
     def n_resident_lanes(self) -> int:
         return sum(r[0].shape[0] for r in self.levels.values()) + self._staged
 
+    def n_settled_lanes(self) -> int:
+        """The eviction trigger's metric. jasper_tpu leaves out runs still
+        queued for their active count; the port queues none, so this is
+        n_resident_lanes."""
+        return self.n_resident_lanes()
+
     def finish(self):
         """Merge all levels; returns (h, keys, counts, n_active) or None if
         nothing was pushed."""
@@ -260,3 +332,64 @@ class RunAccumulator:
         if n_active is None:
             n_active = (counts > 0).sum()
         return h, keys, counts, int(n_active)
+
+
+class PartitionSliceOverflow(RuntimeError):
+    """A stage flush had more actives in one hash partition than the slice
+    capacity (far past the binomial mean: a skewed hash). Callers redo the
+    count with the P-pass extraction filter, which has no capacity."""
+
+
+class PartitionedRunAccumulator:
+    """P hash-partition LSM ladders fed by one shared staging buffer
+    (jasper_tpu's PartitionedRunAccumulator): each stage flush sorts every
+    staged window once (flush_stage_split) and hands partition p's slice to
+    ladder p, so the ladders hold the partition-p subsequences of one
+    stream. The slices cover the global partitions [p0, p0 + P) of
+    2^bits_total.
+
+    jasper_tpu checks the overflow count when it lands over its link; here
+    it is read at each flush and raises PartitionSliceOverflow at once."""
+
+    def __init__(self, P: int, unit: int, stage_lanes: int,
+                 slice_cap: int | None = None, p0: int = 0,
+                 bits_total: int | None = None):
+        _check_pow2(P)
+        self.P = P
+        self.p0 = p0
+        self.bits_total = P.bit_length() - 1 if bits_total is None else bits_total
+        self.stage_lanes = stage_lanes
+        self.C = slice_cap or (stage_lanes // P + max(stage_lanes // (4 * P), 1 << 15))
+        self.accs = [RunAccumulator(unit=unit, stage_lanes=8 * max(1, unit))
+                     for _ in range(P)]
+        self._stage: list[tuple] = []
+        self._staged = 0
+
+    def push_raw(self, keys, valid):
+        self._stage.append((keys, valid))
+        self._staged += keys.shape[0]
+        if self._staged >= self.stage_lanes:
+            self.flush_stage()
+
+    def flush_stage(self):
+        if not self._stage:
+            return
+        stage, self._stage, self._staged = self._stage, [], 0
+        hs, ks, cs, nacts, ovf = flush_stage_split(
+            [k for k, _ in stage], [v for _, v in stage], self.P, self.C,
+            self.p0, self.bits_total)
+        if ovf > 0:
+            raise PartitionSliceOverflow(
+                f"{ovf} actives past a partition slice capacity of {self.C} lanes")
+        for acc, run in zip(self.accs, zip(hs, ks, cs, nacts)):
+            acc._push(*run)
+
+    def n_resident_lanes(self) -> int:
+        return self._staged + sum(a.n_resident_lanes() for a in self.accs)
+
+    def n_settled_lanes(self) -> int:
+        return self._staged + sum(a.n_settled_lanes() for a in self.accs)
+
+    def drain(self):
+        """Flush the shared stage (the ladders have no queue to drain)."""
+        self.flush_stage()

@@ -293,7 +293,9 @@ def run_pipeline(
         else:
             counts = CountSource(host_table)
             scanner = select_scanner(host_table, k, device, device_tab=dev_tab)
-            log(f"Scanner: {type(scanner).__name__}")
+            log(f"Scanner: {type(scanner).__name__} (table "
+                + ("built on the device by the count)" if from_count
+                   else "uploaded from the host)"))
 
             def engine_cls(c, kk, t):
                 return DevicePolishEngine(c, kk, t, scanner=scanner)

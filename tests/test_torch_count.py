@@ -103,16 +103,28 @@ def test_count_empty_input(tmp_path):
 
 
 def test_count_past_budget_raises(tmp_path, monkeypatch):
-    """No silent slower path: a -s estimate past the finish budget
-    (partitioned counting) and a ladder past it raise, naming the work."""
+    """Past the finish budget nothing raises any more: a -s estimate past it
+    counts in hash partitions, and a ladder past it is evicted and merged
+    on the host. Both give the classic branch's records, host table and
+    device table."""
     fq, _ = _reads_fq(tmp_path, 7)
+    want = tcounter.count_reads_to_host([fq], 15, "cpu", chunk_len=1024)
     monkeypatch.setattr(tcounter, "finish_budget_lanes", lambda device, k: 2000)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tcounter.count_reads_to_host([fq], 15, "cpu", hash_size_hint=4000,
-                                     chunk_len=1024)
+    logs = []
+    part = tcounter.count_reads_to_host([fq], 15, "cpu", hash_size_hint=4000,
+                                        chunk_len=1024, tlog=logs.append)
+    assert "count: 2 hash partitions in 1 passes" in logs[1], logs
     monkeypatch.setattr(tcounter, "finish_budget_lanes", lambda device, k: 100)
-    with pytest.raises(NotImplementedError, match="resident lanes"):
-        tcounter.count_reads_to_host([fq], 15, "cpu", chunk_len=1024)
+    logs2 = []
+    evict = tcounter.count_reads_to_host([fq], 15, "cpu", chunk_len=1024,
+                                         tlog=logs2.append)
+    assert any(m.startswith("count: eviction started") for m in logs2), logs2
+    assert any(m.startswith("count: host-merge finish done") for m in logs2), logs2
+    for got in (part, evict):
+        for a, b in zip(got[1:3], want[1:3]):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got[0].tab, want[0].tab)
+        np.testing.assert_array_equal(table_to_numpy(got[3]), want[0].tab)
 
 
 @pytest.mark.parametrize("rows", [

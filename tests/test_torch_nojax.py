@@ -80,6 +80,8 @@ PIPELINE_SCRIPT = textwrap.dedent("""
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
     assert not loaded, loaded
+    for _, m in res["stages"]:
+        print(m)
     print("NOJAX_PIPELINE_OK", res["q_before"], res["q_after"])
 """)
 
@@ -87,6 +89,18 @@ PIPELINE_SCRIPT = textwrap.dedent("""
 def test_pipeline_runs_without_jax(tmp_path):
     """The port's pipeline CLI from reads (count, device table, polish,
     join, QV) and from the .jf it wrote, with jax blocked."""
+    _pipeline_without_jax(tmp_path, {})
+
+
+def test_partitioned_pipeline_runs_without_jax(tmp_path):
+    """The same with the count in four hash partitions (the partitioned
+    branch, the host merge and the device table from the merged run)."""
+    out = _pipeline_without_jax(tmp_path, {"JT_COUNT_PARTITIONS": "4"})
+    assert "count: pass 1/1 counted" in out and "4 ladders" in out
+    assert "count: device scan table built (from merged run)" in out
+
+
+def _pipeline_without_jax(tmp_path, extra_env):
     rng = np.random.default_rng(2)
     genome = G.random_genome(rng, 6000)
     with open(tmp_path / "reads.fq", "w") as f:
@@ -96,6 +110,7 @@ def test_pipeline_runs_without_jax(tmp_path):
     G.write_fasta_file(str(tmp_path / "asm.fa"), {"ctg": draft})
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
+    env.update(extra_env)
     r = subprocess.run([sys.executable, "-c", PIPELINE_SCRIPT], cwd=str(tmp_path),
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
@@ -103,3 +118,4 @@ def test_pipeline_runs_without_jax(tmp_path):
     for wd in ("wd", "wd_j"):
         polished = (tmp_path / wd / "asm.fa.polished.fasta").read_text()
         assert polished == f">ctg\n{genome}\n", wd
+    return r.stdout
