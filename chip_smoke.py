@@ -10,7 +10,9 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   3. kernel vs plain: the CUDA bucket probe against its plain torch twin on
      the same CUDA tensors, bit for bit, at k=25 and k=37, on a fast-load
      table and a dense (load >= 0.85) one, 4 M lanes of present, absent and
-     invalid keys; lookups/s of both from CUDA events;
+     invalid keys; the kernel's and the plain twin's ms from CUDA events,
+     the kernel's bound (the bytes its inputs, probed rows and output must
+     move at 3.35 TB/s) and its share of that bound;
   4. the runner path: a --genome-mbp slice of the race configuration (one
      contig with a sub/del/ins error every ~4 kb, k=25, 2 passes + the QV
      pass, threshold 5, a synthetic table of 55,718,396 records per 20 Mbp)
@@ -57,9 +59,11 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      resident lanes per pass, the device ms of the split flushes and the
      peak device memory.
 
-Ends with a JSON line of the kernels, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repository.
+After the last phase the script fails if any module of the JAX package
+(``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process. It ends
+with a JSON line of the kernels, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, without
+a CUDA device or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -87,6 +91,15 @@ BIG_HISTO = os.path.join("race_artifacts", "race100_histo_tpu.txt")
 HERE = os.path.dirname(os.path.abspath(__file__))
 LANES = 1 << 22  # probe lanes per comparison = the scan tile
 M32 = 0xFFFFFFFF
+# NVIDIA H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue on
+# the CUDA cores, 64 INT32 lanes per SM (NVIDIA's H100 architecture white
+# paper) x 132 SMs x 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+PROBE_DESIGN = ("a warp per 32 lanes: coalesced key loads, hash per thread, every "
+                "pending lane's 256 B row fetched at once with cp.async into shared "
+                "memory (16 B a thread), slot-parallel compare with __ballot_sync "
+                "and __reduce_add_sync, the chain re-fetched for pending lanes")
 
 
 def log(msg: str) -> None:
@@ -131,12 +144,56 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def probed_rows(tab, keys, valid) -> int:
+    """Rows the probe chain reads for these inputs: every valid lane's home
+    row, and the next row of every lane still pending (the plain twin's
+    rounds, counted)."""
+    import torch
+
+    from jasper_tpu_torch.ops.hashing import home_of, mix32
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.layout import PAD_BUCKETS
+
+    n_buckets = tab.shape[0] - PAD_BUCKETS
+    home = home_of(mix32(keys), n_buckets)
+    lanes = torch.nonzero(valid, as_tuple=True)[0]
+    rows = 0
+    for off in range(PAD_BUCKETS + 2):
+        if lanes.numel() == 0:
+            break
+        rows += lanes.numel()
+        b = torch.clamp(home[lanes] + off, max=n_buckets + PAD_BUCKETS - 1)
+        _c, hit, empty = probe.probe_rows_plain(tab, b, keys[lanes])
+        lanes = lanes[~hit & ~empty]
+    return rows
+
+
+def probe_bound(tab, keys, valid) -> dict:
+    """The least time the card could take for one probe call on these
+    inputs: each lane's key words, valid flag and 4-byte count, and each
+    probed 256-byte row, moved once at HBM_BYTES_PER_S; against the hash
+    (~8 int32 ops a word + 10 for the finish) and the slot compares
+    (W + 2 a slot of a probed row) at INT32_OPS_PER_S."""
+    B, W = keys.shape
+    S = 64 // (W + 1)
+    rows = probed_rows(tab, keys, valid)
+    nbytes = B * (4 * W + 1 + 4) + rows * 256
+    ops = B * (8 * W + 10) + rows * S * (W + 2)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"probed_rows": rows, "bound_bytes": nbytes, "bound_ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def compare_probe(tab, keys, valid, iters=(20, 5)) -> dict:
-    """Kernel vs plain on the same CUDA tensors: equality and times."""
+    """Kernel vs plain on the same CUDA tensors: equality, times, the bound
+    and the kernel's share of it."""
     import torch
 
     from jasper_tpu_torch.table import probe
 
+    launches0 = probe.LAUNCHES
     got = probe.lookup_kmers_cuda(tab, keys, valid)
     want = probe.lookup_kmers_plain(tab, keys, valid)
     torch.cuda.synchronize()
@@ -144,12 +201,16 @@ def compare_probe(tab, keys, valid, iters=(20, 5)) -> dict:
               .abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
         raise AssertionError(f"probe kernel != plain (max abs err {err})")
-    ms = cuda_ms(lambda: probe.lookup_kmers_cuda(tab, keys, valid), iters[0])
-    plain_ms = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid), iters[1])
     B = keys.shape[0]
-    return {"lanes": B, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_lookups_per_s": B / (ms / 1e3),
-            "plain_lookups_per_s": B / (plain_ms / 1e3)}
+    res = {"lanes": B, "max_abs_err": err, **probe_bound(tab, keys, valid)}
+
+    res["ms"] = cuda_ms(lambda: probe.lookup_kmers_cuda(tab, keys, valid), iters[0])
+    res["plain_ms"] = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid), iters[1])
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["launches_in_comparison"] = probe.LAUNCHES - launches0
+    res["kernel_lookups_per_s"] = B / (res["ms"] / 1e3)
+    res["plain_lookups_per_s"] = B / (res["plain_ms"] / 1e3)
+    return res
 
 
 def spill_keys(k: int, n_buckets: int, count: int, device, seed: int):
@@ -398,10 +459,12 @@ def phase_runner(args, rng, device, workdir: str) -> dict:
     return out
 
 
-def phase_main_shape(scanner, draft: bytes, device, k: int = 25) -> dict:
+def phase_main_shape(scanner, draft: bytes, device, launches: int, card: str,
+                     k: int = 25) -> dict:
     """The probe at the main path's shape — one scan tile of draft windows
-    against the race table — kernel vs plain, and that tile's scan timed
-    stage by stage."""
+    against the race table — kernel vs plain, and that
+    tile's scan timed stage by stage. ``launches`` is the driver path's
+    count of probe launches."""
     import torch
 
     from jasper_tpu_torch.ops.kmer import canonical_windows_fast
@@ -415,6 +478,8 @@ def phase_main_shape(scanner, draft: bytes, device, k: int = 25) -> dict:
     keys, valid = canonical_windows_fast(chunk, k)
     k32 = to_i32_bits(keys)
     res = compare_probe(scanner.tab, k32, valid)
+    res.update(main_path_launches=launches, table_bytes=int(scanner.tab.numel() * 4),
+               card=card)
     c, b, r = scan_window(scanner.tab, chunk, 5, k)
     res["stages_ms"] = {
         "extract": cuda_ms(lambda: canonical_windows_fast(chunk, k), 5),
@@ -1033,7 +1098,7 @@ def main(argv=None) -> int:
     log(f"kernel build {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.build_seconds:.1f}s) -> {_build.library_path()}")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log("ptxas " + line.strip())
 
     workdir = args.workdir or os.path.join(HERE, ".smoke_work")
@@ -1061,11 +1126,19 @@ def main(argv=None) -> int:
         "max_abs_err": max_err,
         "ms": shapes[0]["ms"],
         "plain_ms": shapes[0]["plain_ms"],
+        "bound_ms": shapes[0]["bound_ms"],
+        "bound_by": shapes[0]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes a bucket probe
+        "design": PROBE_DESIGN,
     }]}
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
         f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
         f"(limit {PEAK_LANE_MULTIPLE})")
+    leaked = sorted(m for m in sys.modules
+                    if m == "jasper_tpu" or m.startswith("jasper_tpu."))
+    if leaked:
+        raise AssertionError(f"modules of the JAX package were loaded: {leaked}")
     log(f"total {time.perf_counter() - t_all:.1f}s")
     print(json.dumps(kernels))
     print(nvidia_smi_line())
@@ -1096,7 +1169,8 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                 if full else {})
             drivers.append(drv)
             scanner = drv.pop("_scanner")
-            shapes.append(phase_main_shape(scanner, drv.pop("_draft"), device))
+            shapes.append(phase_main_shape(scanner, drv.pop("_draft"), device,
+                                           drv["probe_launches"], card))
             if 7 in phases:
                 peak_resident = max(r for _n, r, _b, _x in
                                     drv["count_peak_memory"]["per_step"])
@@ -1115,7 +1189,8 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                          histogram=read_histogram(os.path.join(HERE, BIG_HISTO)))
         drv = phase_driver(asm, reads, genome, errors, device, card, gates)
         drivers.append(drv)
-        shapes.append(phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device))
+        shapes.append(phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device,
+                                       drv["probe_launches"], card))
     return drivers, shapes, probe_rows
 
 

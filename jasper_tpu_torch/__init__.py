@@ -3,10 +3,12 @@
 The port sits beside ``jasper_tpu``, which stays the reference: every ported
 module is held bit for bit against its ``jasper_tpu`` counterpart by the
 ``tests/test_torch_*.py`` parity suites. This package imports ``torch`` and
-never ``jax``; where it reuses a ``jasper_tpu`` module, that module is
-jax-free (``polish.engine``, ``polish.runner.polish_file``, ``io.jf``,
-``io.native_jf``, ``io.fastx``, ``ops.kmer``, ``ops.codes`` and the helpers
-of ``pipeline.driver``).
+nothing of ``jax`` or ``jasper_tpu``: the host modules it shares with
+jasper_tpu are its own copies, each naming its source by file and line
+(``polish.engine``, ``polish.runner.polish_file``, ``io.jf``, ``io.fastx``,
+``io.bam``, ``io.native``, ``io.native_jf``, ``ops.codes``, ``ops.gf2``, the
+host helpers of ``ops.kmer``, ``utils.pairwise`` and the helpers of
+``pipeline.driver``). tests/test_torch_selfcontained.py enforces it.
 
 Ported so far, on one device: counting from reads (count/: extraction,
 sorted runs in an LSM ladder, the waterfall build of the table on the

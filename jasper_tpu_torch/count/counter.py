@@ -2,7 +2,7 @@
 jasper_tpu/count/counter.py, which imports jax at load): `jellyfish count -C`
 as sort + segment-sum.
 
-Code chunks stream from the reads (jasper_tpu.io.fastx.stream_codes, parsed
+Code chunks stream from the reads (io/fastx.py's stream_codes, parsed
 on a background thread), every window is extracted and canonicalized on the
 device, and the windows collapse into sorted runs that accumulate in LSM
 ladders (count/sorted_runs.py). The distinct records then land on the host
@@ -39,10 +39,6 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from jasper_tpu.io import native_jf
-from jasper_tpu.io.fastx import stream_codes, total_file_bytes
-from jasper_tpu.ops.kmer import words_per_kmer
-
 from jasper_tpu_torch.count.sorted_runs import (
     PartitionedRunAccumulator,
     PartitionSliceOverflow,
@@ -50,8 +46,11 @@ from jasper_tpu_torch.count.sorted_runs import (
     extract_windows,
     make_run,
 )
+from jasper_tpu_torch.io import native_jf
+from jasper_tpu_torch.io.fastx import stream_codes, total_file_bytes
+from jasper_tpu_torch.ops.codes import CODE_N, encode
 from jasper_tpu_torch.ops.hashing import M32
-from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+from jasper_tpu_torch.ops.kmer import canonical_windows_fast, words_per_kmer
 from jasper_tpu_torch.table.build import build_table
 from jasper_tpu_torch.table.host_table import HostKmerTable, _require_native
 from jasper_tpu_torch.table.kmer_table import run_to_numpy
@@ -233,8 +232,6 @@ def count_sequences(seqs: Iterable[str], k: int, device, n_slots: int = 1 << 16)
     """Count the k-mers of in-memory sequences into a device table (int32
     bits), as jasper_tpu's count_sequences does; an input shorter than k
     gives an empty table of ``n_slots`` slots."""
-    from jasper_tpu.ops.codes import CODE_N, encode
-
     parts = []
     for s in seqs:
         parts.append(encode(s))

@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jasper_tpu.ops.kmer import words_per_kmer
-
 from jasper_tpu_torch.ops.hashing import M32
+from jasper_tpu_torch.ops.kmer import words_per_kmer
 from jasper_tpu_torch.table.layout import ROW_U32, slot_words_for
 
 HISTO_HIGH = 10000

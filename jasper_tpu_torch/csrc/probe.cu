@@ -15,52 +15,62 @@
 // Per lane: h = murmur3-32 over the W words (ops/hashing.py:mix32), home
 // bucket = mulhi(h, n_buckets), then probe offsets 0, 1, ..., PAD_BUCKETS+1
 // with the row clamped to n_buckets + PAD_BUCKETS - 1. The first row with
-// a matching occupied slot answers its count; the first row with an empty
+// a matching occupied slot answers the sum of its matching slots' counts
+// (mod 2^32, as the plain twin sums them); the first row with an empty
 // slot answers 0 (the insert invariant: a stored key's chain is all-full);
 // a lane still pending after the last offset answers 0.
 //
-// What bounds it on Hopper: each probe is a random 256-byte row read from a
-// table far larger than the 50 MB L2 (1.24 GB at the 20 Mbp
-// configuration), so the kernel is bound by DRAM latency and transactions,
-// not arithmetic (the hash is ~20 integer ops per word). The design keeps
-// the TPU kernel's one point — fetch and compare fused, 4 bytes out per
-// lane instead of the 256-byte gathered row the XLA path materializes —
-// with one thread per lane and no padding of the batch: the ragged last
-// block is masked. Each thread reads only the count block and, on an
-// occupied slot, that slot's key words; the 32-byte sectors of one row are
-// reused through L1 (read-only loads). Coalescing the row read across a
-// warp and fusing extraction and classification into one pass over a
-// contig tile are later work.
+// What bounds it on Hopper: bytes. Each probe reads one random 256-byte row
+// of a table far larger than the 50 MB L2 (1.24 GB at the 20 Mbp
+// configuration), so a lane costs its key, its valid flag, its row (two
+// full 128-byte lines) and its 4-byte count: 269 bytes at k=25, ~0.34 ms
+// for a 4 M-lane scan tile at 3.35 TB/s. The hash and the compares are a
+// few dozen integer operations a lane, far under the card's rate.
+//
+// Design. The first version gave each thread one lane and walked the row
+// slot by slot with dependent loads: every 32-byte sector was its own DRAM
+// round trip and a warp touched 32 rows at once with no load coalesced, so
+// it ran latency-bound at a quarter of the bound. Here a warp owns 32 lanes:
+//   * keys and valid flags load coalesced, one lane per thread, and each
+//     thread hashes its own lane;
+//   * every pending lane's row is fetched at once with cp.async into the
+//     warp's 32 row buffers in shared memory (8 KB): a half-warp moves one
+//     row as 16 x 16 bytes, so a row is two full lines in one round trip,
+//     and the warp has up to 32 rows (8 KB) in flight. Blocks of 4 warps
+//     take 32 KB of shared memory, so ~6 blocks share an SM and ~190 KB of
+//     rows can be in flight per SM, well past the ~20 KB that Little's law
+//     asks (3.35 TB/s x ~0.8 us over 132 SMs). A ring of stages inside one
+//     warp is not needed: while one warp compares, the other warps' rows
+//     are in flight;
+//   * the compare is slot-parallel: for each pending lane, thread t < S
+//     checks slot t of that lane's row from shared memory (conflict-free:
+//     neighbouring threads read neighbouring words), __ballot_sync gives
+//     hit and has-empty and __reduce_add_sync sums the matching counts;
+//   * a lane whose row was full without its key stays pending and the warp
+//     fetches the next offset of every such lane together. At the fast
+//     load most lanes settle at offset 0.
+// Rows are fetched with .cg (L2 only): a row is read once per probe, and
+// caching it in L1 would only evict the other warps' rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kRowU32 = 64;
+constexpr int kRowU32 = 64;  // one bucket row: 256 bytes
 constexpr uint32_t kPadBuckets = 32;
+constexpr int kWarps = 4;  // warps per block
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
 template <int W>
-__global__ void probe_chain_kernel(const uint32_t* __restrict__ tab,
-                                   const uint32_t* __restrict__ keys,
-                                   const uint8_t* __restrict__ valid,
-                                   uint32_t* __restrict__ out, int64_t B,
-                                   uint32_t n_buckets, int S) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  if (!valid[lane]) {
-    out[lane] = 0;
-    return;
-  }
-  uint32_t kw[W];
+__device__ __forceinline__ uint32_t mix32(const uint32_t (&kw)[W]) {
   uint32_t h = 0x6A737072u;  // "jspr"
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    kw[j] = __ldg(keys + lane * W + j);
     uint32_t kx = kw[j] * 0xCC9E2D51u;
     kx = rotl32(kx, 15);
     kx *= 0x1B873593u;
@@ -74,71 +84,140 @@ __global__ void probe_chain_kernel(const uint32_t* __restrict__ tab,
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
+  return h;
+}
 
-  const uint32_t home = n_buckets <= 1 ? 0u : __umulhi(h, n_buckets);
-  const uint64_t last = static_cast<uint64_t>(n_buckets) + kPadBuckets - 1;
-  uint32_t result = 0;
-  for (uint32_t off = 0; off <= kPadBuckets + 1; ++off) {
-    uint64_t b = static_cast<uint64_t>(home) + off;
-    if (b > last) b = last;
-    const uint32_t* row = tab + b * kRowU32;  // 64-bit row offset
-    bool empty = false;
-    bool hit = false;
-    for (int s = 0; s < S; ++s) {
-      const uint32_t c = __ldg(row + W * S + s);
-      if (c == 0) {
-        empty = true;
-        continue;
-      }
-      bool eq = true;
-#pragma unroll
-      for (int j = 0; j < W; ++j) eq = eq && (__ldg(row + j * S + s) == kw[j]);
-      if (eq) {
-        result = c;
-        hit = true;
-        break;
-      }
-    }
-    if (hit || empty) break;
-  }
-  out[lane] = result;
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <int W>
-void launch(const uint32_t* tab, const uint32_t* keys, const uint8_t* valid,
-            uint32_t* out, int64_t B, uint32_t n_buckets, int S,
-            cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  probe_chain_kernel<W><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+__global__ void __launch_bounds__(kWarps * 32)
+    probe_chain_kernel(const uint32_t* __restrict__ tab,
+                       const uint32_t* __restrict__ keys,
+                       const uint8_t* __restrict__ valid,
+                       uint32_t* __restrict__ out, int64_t B,
+                       uint32_t n_buckets, int S) {
+  __shared__ __align__(16) uint32_t rows[kWarps][32][kRowU32];
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int64_t first = (static_cast<int64_t>(blockIdx.x) * kWarps + w) * 32;
+  if (first >= B) return;  // the whole warp: the ragged last block
+  const int64_t lane = first + t;
+  const bool in = lane < B;
+
+  uint32_t kw[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) kw[j] = in ? __ldg(keys + lane * W + j) : 0u;
+  bool pending = in && __ldg(valid + lane) != 0;
+  const uint32_t h = mix32<W>(kw);
+  const uint32_t home = n_buckets <= 1 ? 0u : __umulhi(h, n_buckets);
+  const uint64_t last = static_cast<uint64_t>(n_buckets) + kPadBuckets - 1;
+
+  uint32_t(*buf)[kRowU32] = rows[w];  // row buffer r holds lane r's row
+  const int half = t >> 4;            // a fetch moves two rows: this half's
+  const int chunk = (t & 15) * 4;     // 16 bytes of that row
+  uint32_t result = 0;
+  uint32_t pend = __ballot_sync(kFull, pending);
+  for (uint32_t off = 0; pend != 0 && off <= kPadBuckets + 1; ++off) {
+    // fetch: every pending lane's row at this offset, two rows at a time
+    for (uint32_t m = pend; m != 0;) {
+      const int r0 = __ffs(m) - 1;
+      m &= m - 1;
+      const bool two = m != 0;
+      const int r1 = two ? __ffs(m) - 1 : r0;
+      if (two) m &= m - 1;
+      const int r = half ? r1 : r0;
+      uint64_t b = static_cast<uint64_t>(__shfl_sync(kFull, home, r)) + off;
+      if (b > last) b = last;
+      if (!half || two) cp_async16(&buf[r][chunk], tab + b * kRowU32 + chunk);
+    }
+    cp_async_wait_all();
+    __syncwarp();  // every thread's copies are visible to the whole warp
+
+    // compare: thread t < S checks slot t of each pending lane's row
+    for (uint32_t m = pend; m != 0; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      uint32_t kr[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) kr[j] = __shfl_sync(kFull, kw[j], r);
+      uint32_t c = 0;
+      bool eq = false;
+      bool empty = false;
+      if (t < S) {
+        c = buf[r][W * S + t];
+        empty = c == 0;
+        eq = !empty;
+#pragma unroll
+        for (int j = 0; j < W; ++j) eq = eq && buf[r][j * S + t] == kr[j];
+      }
+      const unsigned settled = __ballot_sync(kFull, eq || empty);
+      const uint32_t sum = __reduce_add_sync(kFull, eq ? c : 0u);
+      if (t == r && settled != 0) {  // a hit answers its sum, an empty slot 0
+        result = sum;
+        pending = false;
+      }
+    }
+    __syncwarp();  // reads done before the next round overwrites the buffers
+    pend = __ballot_sync(kFull, pending);
+  }
+  if (in) out[lane] = result;
+}
+
+template <int W>
+cudaError_t launch(const uint32_t* tab, const uint32_t* keys,
+                   const uint8_t* valid, uint32_t* out, int64_t B,
+                   uint32_t n_buckets, int S, cudaStream_t stream) {
+  // shared memory before L1: the rows bypass L1, and more resident blocks
+  // keep more rows in flight
+  static bool carved = false;
+  if (!carved) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_chain_kernel<W>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    carved = true;
+  }
+  constexpr int64_t kLanesPerBlock = kWarps * 32;
+  const int64_t blocks = (B + kLanesPerBlock - 1) / kLanesPerBlock;
+  probe_chain_kernel<W><<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
       tab, keys, valid, out, B, n_buckets, S);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError()
-// (0 = launched). W must be 1..4 (k <= 64); the wrapper checks the rest.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaError_t (0 = launched). W must be 1..4 (k <= 64) and S <= 32; the
+// wrapper checks the rest.
 int jt_probe_lookup(const void* tab, const void* keys, const void* valid,
                     void* out, int64_t B, uint32_t n_buckets, int W, int S,
                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0) return 0;
+  if (S < 1 || S > 32) return static_cast<int>(cudaErrorInvalidValue);
   auto* t = static_cast<const uint32_t*>(tab);
   auto* k = static_cast<const uint32_t*>(keys);
   auto* v = static_cast<const uint8_t*>(valid);
   auto* o = static_cast<uint32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: launch<1>(t, k, v, o, B, n_buckets, S, st); break;
-    case 2: launch<2>(t, k, v, o, B, n_buckets, S, st); break;
-    case 3: launch<3>(t, k, v, o, B, n_buckets, S, st); break;
-    case 4: launch<4>(t, k, v, o, B, n_buckets, S, st); break;
+    case 1: err = launch<1>(t, k, v, o, B, n_buckets, S, st); break;
+    case 2: err = launch<2>(t, k, v, o, B, n_buckets, S, st); break;
+    case 3: err = launch<3>(t, k, v, o, B, n_buckets, S, st); break;
+    case 4: err = launch<4>(t, k, v, o, B, n_buckets, S, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 const char* jt_cuda_error_string(int err) {

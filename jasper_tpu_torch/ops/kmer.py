@@ -9,15 +9,27 @@ packing of the reversed codes starting at L-k-i, so each key word is
 jasper_tpu groups windows by i mod 16 so that its slices stay static under
 jit; eager torch takes a per-lane shift instead and emits positional order
 directly. Words are int64 values in [0, 2^32) (see ops/hashing.py).
+
+Also the host (numpy / int) helpers of jasper_tpu/ops/kmer.py:24-31 and
+229-254, copied as they are: key widths and the scalar conversions the .jf
+text format uses.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from jasper_tpu.ops.kmer import words_per_kmer
-
 from jasper_tpu_torch.ops.hashing import M32
+
+
+def words_per_kmer(k: int) -> int:
+    return (2 * k + 31) // 32
+
+
+def key_bytes(k: int) -> int:
+    """Bytes per key in the .jf binary/sorted record (ceil(2k/8))."""
+    return (2 * k + 7) // 8
 
 
 def words_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,3 +99,35 @@ def canonical_windows_fast(codes: torch.Tensor, k: int):
     cs[1:] = torch.cumsum(bad, dim=0)
     valid = (cs[k : n + k] - cs[:n]) == 0
     return keys, valid
+
+
+# ---------------------------------------------------------------------------
+# Host-side scalar helpers (.jf text format)
+
+
+def kmer_to_int(seq: str) -> int:
+    """ACGT string -> packed integer (first base most significant)."""
+    v = 0
+    m = {"A": 0, "C": 1, "G": 2, "T": 3, "a": 0, "c": 1, "g": 2, "t": 3}
+    for ch in seq:
+        v = (v << 2) | m[ch]
+    return v
+
+
+def int_to_kmer(v: int, k: int) -> str:
+    out = []
+    for p in range(k):
+        out.append("ACGT"[(v >> (2 * (k - 1 - p))) & 3])
+    return "".join(out)
+
+
+def int_to_words(v: int, k: int) -> np.ndarray:
+    W = words_per_kmer(k)
+    return np.array([(v >> (32 * j)) & 0xFFFFFFFF for j in range(W)], dtype=np.uint32)
+
+
+def words_to_int(words) -> int:
+    v = 0
+    for j in range(len(words) - 1, -1, -1):
+        v = (v << 32) | int(words[j])
+    return v

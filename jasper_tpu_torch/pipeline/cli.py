@@ -12,9 +12,7 @@ import datetime
 import os
 import sys
 
-from jasper_tpu.pipeline.driver import PipelineError
-
-from jasper_tpu_torch.pipeline.driver import run_pipeline
+from jasper_tpu_torch.pipeline.driver import PipelineError, run_pipeline
 from jasper_tpu_torch.utils.device import resolve_device
 
 

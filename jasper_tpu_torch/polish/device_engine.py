@@ -4,10 +4,11 @@ jasper_tpu/polish/device_engine.py:32-211, which imports jax at load).
 Every window count of a contig comes from the device scan
 (polish.window.scan_window_tiled: canonical extraction + the CUDA bucket
 probe + threshold classification); the host runs the exact reference
-control flow only at the positions the scan flagged. The host walk is
-jasper_tpu.polish.engine.PolishEngine, unchanged; the byte-exactness
-argument is jasper_tpu's (a valid, solid, non-dropping window with a valid
-previous window provably takes the reference's ``i += k-1`` branch).
+control flow only at the positions the scan flagged. The host walk is the
+port's copy of jasper_tpu's, polish/engine.py's PolishEngine; the
+byte-exactness argument is jasper_tpu's (a valid, solid, non-dropping window
+with a valid previous window provably takes the reference's ``i += k-1``
+branch).
 """
 
 from __future__ import annotations
@@ -16,26 +17,14 @@ import time
 
 import numpy as np
 
-from jasper_tpu.ops.codes import encode
-from jasper_tpu.polish import engine as _engine
-from jasper_tpu.polish.engine import PassResult, PolishEngine, _all_acgt
-
+from jasper_tpu_torch.ops.codes import encode
+from jasper_tpu_torch.polish.engine import (
+    CountSource,
+    PassResult,
+    PolishEngine,
+    _all_acgt,
+)
 from jasper_tpu_torch.polish.window import scan_window_tiled
-from jasper_tpu_torch.table.native_table import NativeTableQuery
-
-
-class CountSource(_engine.CountSource):
-    """jasper_tpu's CountSource bound to the native query library, or an
-    error. The parent's __init__ imports jasper_tpu.table.native_table,
-    which needs jax; without jax it swallows the ImportError and leaves
-    every repair query on the ~68x slower pure-Python path. This __init__
-    replaces it entirely; count/counts_at/count_batch are inherited."""
-
-    def __init__(self, host_table):
-        self.table = host_table
-        self.k = host_table.k
-        self._memo: dict[str, int] = {}
-        self._native = NativeTableQuery(host_table)
 
 
 class ContigScan:

@@ -4,10 +4,10 @@ Takes the reference jasper.py flags exactly as jasper_tpu/polish/runner.py
 does (the run_jasper.sh batch scripts call them), plus ``--device``
 (default ``cuda``; there is no CPU fallback). It wires the pipeline's
 polish stage (jasper_tpu/pipeline/driver.py:553-576) on the port: a CountSource
-over the host table, select_scanner, DevicePolishEngine, and jasper_tpu's
-jax-free ``polish_file``, which writes the reference artifacts:
-``_iter{i}_<fout>`` fix CSVs, ``{i}qValCalcHelper.csv`` and the 60-column
-fixed FASTA.
+over the host table, select_scanner, DevicePolishEngine, and ``polish_file``
+(a copy of jasper_tpu/polish/runner.py:28-91, with ``_iter_name``), which
+writes the reference artifacts: ``_iter{i}_<fout>`` fix CSVs,
+``{i}qValCalcHelper.csv`` and the 60-column fixed FASTA.
 
     python -m jasper_tpu_torch.polish.runner --db db.jf -q batch.fa \\
         --ksize 25 -p 2 --fix --test -thre 5 --device cuda
@@ -16,21 +16,89 @@ fixed FASTA.
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from jasper_tpu.pipeline.driver import qv_from_tallies, read_qv_helper
-from jasper_tpu.polish.runner import polish_file
-
+from jasper_tpu_torch.io.fastx import read_fasta
 from jasper_tpu_torch.io.jf import load_jf_into_host_table
 from jasper_tpu_torch.parallel.scanner import select_scanner
-from jasper_tpu_torch.polish.device_engine import CountSource, DevicePolishEngine
+from jasper_tpu_torch.pipeline.driver import qv_from_tallies, read_qv_helper
+from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
+from jasper_tpu_torch.polish.engine import CountSource, PolishEngine
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.utils.device import resolve_device
+
+
+def _iter_name(path: str, ite: int) -> str:
+    head, tail = os.path.split(path)
+    return head + "_iter" + str(ite) + "_" + tail
+
+
+def polish_file(
+    query_path: str,
+    counts: CountSource,
+    k: int,
+    threshold: int,
+    passes: int,
+    fix: bool = True,
+    test: bool = True,
+    fout: str = "fout.csv",
+    fixedout: str = "fixed_seq.fasta",
+    workdir: str = ".",
+    seqs: dict[str, str] | None = None,
+    engine_cls=PolishEngine,
+):
+    """Run `passes` fixing iterations + one QV scan over a FASTA file.
+
+    Writes the same artifact set as reference jasper.py. Returns the final
+    sequence dict.
+    """
+    import time as _time
+
+    engine = engine_cls(counts, k, threshold)
+    user_fix_choice = fix
+    if seqs is None:
+        seqs = read_fasta(query_path)
+    final_fixedout = fixedout
+    for ite in range(passes + 1):
+        ite_fix = fix
+        if ite == passes:
+            ite_fix = False
+            final_fixedout = _iter_name(fixedout, ite - 1)
+        _t0 = _time.perf_counter()
+        result = engine.run_pass(seqs, ite_fix)
+        print(f"[stage] polish pass {ite} scan+fix "
+              f"{_time.perf_counter() - _t0:.1f}s", flush=True)
+        seqs = result.seqs
+
+        if test and (ite == 0 or ite == passes):
+            helper = os.path.join(workdir, f"{ite}qValCalcHelper.csv")
+            with open(helper, "a") as f:
+                f.write(f"{result.total_wrong_kmers} {result.total_kmers}\n")
+
+        if ite_fix:
+            ite_fout = os.path.join(workdir, _iter_name(fout, ite))
+            with open(ite_fout, "w") as f:
+                w = csv.writer(f, delimiter=" ")
+                w.writerow(["Contig", "Base_coord", "Original", "Mutation"])
+                w.writerows(
+                    [r.contig, r.coord, r.mutation, r.original] for r in result.fixes
+                )
+
+        if ite == passes and user_fix_choice:
+            out_path = os.path.join(workdir, final_fixedout)
+            with open(out_path, "w") as f:
+                for name, seq in seqs.items():
+                    f.write(f">{name}\n")
+                    for off in range(0, len(seq), 60):
+                        f.write(seq[off : off + 60] + "\n")
+    return seqs
 
 
 @dataclasses.dataclass

@@ -18,9 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from jasper_tpu.ops.kmer import words_per_kmer
-
 from jasper_tpu_torch.ops.hashing import home_of
+from jasper_tpu_torch.ops.kmer import words_per_kmer
 from jasper_tpu_torch.table.layout import (
     PAD_BUCKETS,
     ROW_U32,

@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from jasper_tpu.io import native_jf
-from jasper_tpu.ops.kmer import key_bytes, words_per_kmer
-
+from jasper_tpu_torch.io import native_jf
+from jasper_tpu_torch.ops.kmer import key_bytes, words_per_kmer
 from jasper_tpu_torch.table.layout import (
     PAD_BUCKETS,
     ROW_U32,

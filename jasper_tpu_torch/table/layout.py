@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 
-from jasper_tpu.ops.kmer import words_per_kmer
+from jasper_tpu_torch.ops.kmer import words_per_kmer
 
 ROW_U32 = 64
 PAD_BUCKETS = 32

@@ -3,7 +3,7 @@
 jax-free copy of jasper_tpu/table/native_table.py:20-130 (that module
 cannot be imported without jax). The repair walk's string queries go
 through this library; unlike jasper_tpu's CountSource, the port has no
-silent pure-Python fallback (see polish.device_engine.CountSource).
+silent pure-Python fallback (see polish.engine.CountSource).
 """
 
 from __future__ import annotations

@@ -73,6 +73,14 @@ def lookup_kmers_plain(tab, keys, valid):
     return to_i32_bits(res)
 
 
+def check_row_alignment(tab):
+    """The kernel copies table rows with 16-byte cp.async: the first row must
+    start on a 16-byte boundary (a view at an odd offset would fault)."""
+    if tab.data_ptr() % 16:
+        raise ValueError(f"lookup_kmers_cuda: tab starts at {tab.data_ptr():#x}, "
+                         "not on a 16-byte boundary")
+
+
 def lookup_kmers_cuda(tab, keys, valid):
     """Launch csrc/probe.cu on the current stream (no synchronise)."""
     global LAUNCHES
@@ -82,6 +90,7 @@ def lookup_kmers_cuda(tab, keys, valid):
                              "not a CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"lookup_kmers_cuda: {name} is not contiguous")
+    check_row_alignment(tab)
     if not (tab.device == keys.device == valid.device):
         raise ValueError("lookup_kmers_cuda: tensors on different devices")
     if tab.dtype != torch.int32 or tab.dim() != 2 or tab.shape[1] != ROW_U32:

@@ -1,6 +1,7 @@
-"""The port runs with jax absent: a subprocess blocks ``import jax`` before
-any other import (this test process cannot: tests/conftest.py imports jax),
-then drives ``jasper_tpu_torch.polish.runner`` and the pipeline CLI
+"""The port runs with jax and jasper_tpu absent: a subprocess blocks
+``import jax`` and ``import jasper_tpu`` before any other import (this test
+process cannot: tests/conftest.py imports jax), then drives
+``jasper_tpu_torch.polish.runner`` and the pipeline CLI
 (``jasper_tpu_torch.pipeline.cli``) on the CPU end to end."""
 
 import os
@@ -36,6 +37,7 @@ def _write_inputs(tmp_path):
 SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
     from jasper_tpu_torch.polish import runner
     rep = runner.run(["--db", "db.jf", "-q", "asm.fa", "--ksize", "25",
                       "-p", "2", "--fix", "--test", "-thre", "5",
@@ -45,7 +47,8 @@ SCRIPT = textwrap.dedent("""
                         "-p", "1", "--fix", "--fout", "again.csv",
                         "-ff", "again.fa", "-thre", "5", "--device", "cpu"]) == 0
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
     assert not loaded, loaded
     print("NOJAX_OK")
 """)
@@ -70,6 +73,7 @@ def test_port_runs_without_jax(tmp_path):
 PIPELINE_SCRIPT = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
     from jasper_tpu_torch.pipeline import cli
     res = cli.run(["-a", "asm.fa", "-r", "reads.fq", "-k", "25", "-p", "2",
                    "-t", "1", "--workdir", "wd", "--device", "cpu"])
@@ -78,7 +82,8 @@ PIPELINE_SCRIPT = textwrap.dedent("""
     assert cli.main(["-a", "asm.fa", "-j", "wd/mer_counts25.jf", "-k", "25",
                      "-t", "1", "--workdir", "wd_j", "--device", "cpu"]) == 0
     loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m])
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
     assert not loaded, loaded
     for _, m in res["stages"]:
         print(m)

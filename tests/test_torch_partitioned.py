@@ -191,7 +191,7 @@ def test_finish_runs_to_host_sums_evictions_saturating(tmp_path, monkeypatch):
 
 
 def test_host_merge_needs_the_native_library(monkeypatch):
-    from jasper_tpu.io import native_jf
+    from jasper_tpu_torch.io import native_jf
 
     s = (np.zeros(1, np.uint32), np.zeros((1, 1), np.uint32), np.ones(1, np.uint32))
     monkeypatch.setattr(native_jf, "available", lambda: False)

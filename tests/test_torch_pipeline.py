@@ -115,7 +115,7 @@ def test_cpu_workers_match_in_process(small_case):
 def test_cpu_workers_need_the_cpu_device(small_case):
     """--cpu-workers polishes on the CPU, so a run on the card refuses it
     before counting rather than moving the polish off the card."""
-    from jasper_tpu.pipeline.driver import PipelineError
+    from jasper_tpu_torch.pipeline.driver import PipelineError
 
     tmp_path, asm, rf, _ = small_case
     with pytest.raises(PipelineError, match="--cpu-workers .* needs --device cpu"):

@@ -176,3 +176,14 @@ def test_cuda_wrapper_refuses_non_cuda_tensors():
         probe.lookup_kmers_cuda(torch.zeros((40, 64), dtype=torch.int32),
                                 torch.zeros((4, 2), dtype=torch.int32),
                                 torch.ones(4, dtype=torch.bool))
+
+
+def test_cuda_wrapper_refuses_a_misaligned_table():
+    # the kernel's 16-byte row copies need a 16-byte aligned first row
+    base = torch.zeros(4 * 64 + 4, dtype=torch.int32)
+    aligned = base[(-base.data_ptr() % 16) // 4 :][: 4 * 64].view(4, 64)
+    probe.check_row_alignment(aligned)
+    shifted = base[(-base.data_ptr() % 16) // 4 + 1 :][: 4 * 64].view(4, 64)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        probe.check_row_alignment(shifted)
