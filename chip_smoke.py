@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8] [--seed 7] [--workdir DIR]
+                          [--phases 3,4,5,6,7,8,9] [--seed 7] [--workdir DIR]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
@@ -57,7 +57,17 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      and the probe launched, the scanner's table equals the host table, no
      step past the lane multiple. Reports P, G, the stage seconds, the
      resident lanes per pass, the device ms of the split flushes and the
-     peak device memory.
+     peak device memory;
+  9. the jellyfish-compatible entry point (bin/jellyfish-tpu-torch), after
+     phase 7 on race20's files: `count -m 25 -s <reads bytes / 10> -C` of the
+     whole reads on the card through jf_cli.main in this process, its
+     records equal to the .jf phase 6's driver wrote (55,718,396 at 20000
+     kb), with its Counting and Writing seconds and peak device memory; on
+     the first 40 Mbp of reads, count without -C against a forward numpy
+     oracle, count --disk (>= 2 intermediates) and count --if race20.jf
+     against the canonical oracle, bc then count --bc (every k-mer seen
+     twice present with its count, extras only singletons); stats and histo
+     of race20.jf through the script in a subprocess.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process. It ends
@@ -550,6 +560,13 @@ def oracle_counts(fastq: str, k: int):
     """Independent count: every canonical k-mer (packed, first base most
     significant) of every read, windows split at N and at read boundaries,
     np.unique with counts. Reads must share one length (the race's do)."""
+    fwd, rc, valid = oracle_windows(fastq, k)
+    return np.unique(np.minimum(fwd, rc)[valid], return_counts=True)
+
+
+def oracle_windows(fastq: str, k: int):
+    """Every window of every read of ``fastq`` as packed forward and
+    reverse-complement k-mers [reads, windows] uint64 and its validity."""
     with open(fastq, "rb") as f:
         seqs = f.read().split(b"\n")[1::4]
     L = len(seqs[0])
@@ -568,11 +585,25 @@ def oracle_counts(fastq: str, k: int):
     bad = np.concatenate([np.zeros((len(seqs), 1), np.int32),
                           np.cumsum(codes > 3, axis=1, dtype=np.int32)], axis=1)
     valid = (bad[:, k:] - bad[:, :n]) == 0
-    return np.unique(np.minimum(fwd, rc)[valid], return_counts=True)
+    return fwd, rc, valid
+
+
+HEAD_READS = 160_000  # phases 5 and 9: the first 40 Mbp of the race reads
+
+
+def reads_head(reads: str, n_reads: int = HEAD_READS) -> str:
+    """The first n_reads FASTQ records of ``reads``, written beside it once."""
+    head = os.path.join(os.path.dirname(reads), "reads_head.fq")
+    if not os.path.exists(head):
+        with open(reads, "rb") as src, open(head + ".part", "wb") as dst:
+            for _ in range(4 * n_reads):
+                dst.write(src.readline())
+        os.replace(head + ".part", head)
+    return head
 
 
 def phase_count(reads: str, device, card: str, k: int = 25,
-                n_reads: int = 160_000) -> dict:
+                n_reads: int = HEAD_READS) -> dict:
     """Phase 5: the port's count_reads_to_host on the card over the first
     ~40 Mbp of the race reads, against oracle_counts; the device-built table
     (K5) against the native host-built one, byte for byte; K7 against the
@@ -586,10 +617,7 @@ def phase_count(reads: str, device, card: str, k: int = 25,
     )
     from jasper_tpu_torch.table.kmer_table import table_from_numpy
 
-    head = os.path.join(os.path.dirname(reads), "reads_head.fq")
-    with open(reads, "rb") as src, open(head, "wb") as dst:
-        for _ in range(4 * n_reads):
-            dst.write(src.readline())
+    head = reads_head(reads, n_reads)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     host, rkeys, rcounts, dev_tab = count_reads_to_host(
@@ -817,7 +845,7 @@ def event_wraps(events: EventLog) -> list:
 
     return [
         (counter, "extract_windows", lambda f: events.wrap(
-            "extract_windows", f, lambda codes, kk, partition=None: codes.shape[0])),
+            "extract_windows", f, lambda codes, *a, **kw: codes.shape[0])),
         (sr, "flush_stage", lambda f: events.wrap(
             "stage_flush", f, lambda kp, vp: sum(x.shape[0] for x in kp),
             flush=True)),
@@ -1054,6 +1082,165 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
     return rows
 
 
+# -- phase 9: the jellyfish entry point --------------------------------------
+
+
+def _packed(keys: np.ndarray) -> np.ndarray:
+    """uint32 key words [N, W <= 2] -> packed uint64 keys."""
+    out = keys[:, 0].astype(np.uint64)
+    if keys.shape[1] > 1:
+        out |= keys[:, 1].astype(np.uint64) << np.uint64(32)
+    return out
+
+
+def _jf_counts(path: str):
+    """A .jf's records as (sorted packed keys, their counts)."""
+    from jasper_tpu_torch.io.jf import read_any_jf
+
+    _k, keys, counts, _h = read_any_jf(path)
+    got = _packed(keys)
+    order = np.argsort(got)
+    return got[order], counts[order]
+
+
+def _record_bytes(path: str) -> bytes:
+    """The records of a .jf (everything after its header)."""
+    with open(path, "rb") as f:
+        f.seek(9 + int(f.read(9)))
+        return f.read()
+
+
+def _expect_counts(path: str, want, what: str) -> int:
+    got, cnt = _jf_counts(path)
+    if not (np.array_equal(got, want[0]) and np.array_equal(cnt, want[1])):
+        raise AssertionError(f"{what}: {len(got)} records != {len(want[0])} expected")
+    return len(got)
+
+
+def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
+                    records_gate: int | None, k: int = 25) -> dict:
+    """Phase 9: bin/jellyfish-tpu-torch, the jellyfish-compatible entry point.
+    count -C on the whole race reads through jf_cli.main in this process,
+    held to the .jf phase 6's driver wrote; on the first 40 Mbp of reads the
+    forward count against a forward numpy oracle, --disk (dumps at the -s
+    floor) and --if (race20's .jf) against the canonical oracle, bc then
+    count --bc against the oracle's k-mers seen twice; then stats and histo
+    of race20's .jf through the script in a subprocess. ``records_gate``
+    is race20's record count, None below full size."""
+    import torch
+
+    from jasper_tpu_torch.io.jf import read_jf
+    from jasper_tpu_torch.pipeline import jf_cli
+    from jasper_tpu_torch.table import probe
+
+    wd = os.path.join(os.path.dirname(reads), "jf")
+    os.makedirs(wd, exist_ok=True)
+    secs: dict = {}
+
+    def count(name, *argv, inputs=(reads,)):
+        t0 = time.perf_counter()
+        rc = jf_cli.main(["count", "-m", str(k), *argv, "--device", str(device),
+                          "--timing", os.path.join(wd, f"{name}.timing"), *inputs])
+        torch.cuda.synchronize(device)
+        secs[name] = time.perf_counter() - t0
+        log(f"jellyfish: count {name} {secs[name]:.1f}s")
+        if rc != 0:
+            raise AssertionError(f"count {name}: exit {rc}")
+        with open(os.path.join(wd, f"{name}.timing")) as f:
+            return {w: float(v) for w, v in (line.split() for line in f if line.strip())}
+
+    # 1. the whole race20 count, against phase 6's .jf
+    race_jf = os.path.join(wd, "race20.jf")
+    size = os.path.getsize(reads) // 10
+    probe.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    timing = count("race20", "-s", str(size), "-C", "-o", race_jf)
+    peak = torch.cuda.max_memory_allocated(device)
+    # the same records in the same order: writers of the same record count
+    # sort by the same (pos, key)
+    if _record_bytes(race_jf) != _record_bytes(driver_jf):
+        raise AssertionError("count -C records != those of the driver's .jf")
+    _keys, counts, _ = read_jf(race_jf)[1:]
+    records = len(counts)
+    del _keys
+    out = {"race20_records": records, "race20_counting_s": timing["Counting"],
+           "race20_writing_s": timing["Writing"], "race20_peak_device_bytes": peak,
+           "probe_launches": probe.LAUNCHES}
+
+    # 2. the forward, --disk, --if and bloom-filtered routes on the head
+    head = reads_head(reads)
+    hsize = str(os.path.getsize(head) // 10)
+    t0 = time.perf_counter()
+    fw, rc, valid = oracle_windows(head, k)
+    canon = np.unique(np.minimum(fw, rc)[valid], return_counts=True)
+    fwd = np.unique(fw[valid], return_counts=True)
+    del fw, rc, valid
+    secs["oracles"] = time.perf_counter() - t0
+    count("forward", "-s", hsize, "-o", os.path.join(wd, "fwd.jf"), inputs=(head,))
+    out["forward_records"] = _expect_counts(os.path.join(wd, "fwd.jf"), fwd,
+                                            "count without -C != the forward oracle")
+    disk = os.path.join(wd, "disk.jf")
+    count("disk", "-s", "1", "-C", "--disk", "--no-unlink", "-o", disk, inputs=(head,))
+    parts = sorted(p for p in os.listdir(wd) if p.startswith("disk.jf") and p[7:].isdigit())
+    if len(parts) < 3:
+        raise AssertionError(f"--disk dumped {len(parts) - 1} intermediates, not >= 2")
+    out["disk_intermediates"] = len(parts) - 1  # the last file is the final table
+    out["disk_records"] = _expect_counts(disk, canon, "count --disk != the oracle")
+    for p in parts:
+        os.unlink(os.path.join(wd, p))
+    count("if", "-s", hsize, "-C", "--if", race_jf, "-o", os.path.join(wd, "if.jf"),
+          inputs=(head,))
+    out["if_records"] = _expect_counts(os.path.join(wd, "if.jf"), canon,
+                                       "count --if race20.jf != the oracle")
+    # bc is sized for the distinct k-mers it will hold (stats gives them)
+    t0 = time.perf_counter()
+    bc = os.path.join(wd, "head.bc")
+    if jf_cli.main(["bc", "-m", str(k), "-s", str(len(canon[0])), "-f", "0.01", "-C",
+                    "-o", bc, head]):
+        raise AssertionError("bc failed")
+    secs["bc"] = time.perf_counter() - t0
+    log(f"jellyfish: bc {secs['bc']:.1f}s")
+    count("bc_filtered", "-s", hsize, "-C", "--bc", bc, "-o", os.path.join(wd, "bc.jf"),
+          inputs=(head,))
+    got, cnt = _jf_counts(os.path.join(wd, "bc.jf"))
+    multi = canon[1] >= 2
+    pos = np.searchsorted(got, canon[0][multi])
+    pos = np.minimum(pos, max(len(got) - 1, 0))
+    if not (len(got) and np.array_equal(got[pos], canon[0][multi])
+            and np.array_equal(cnt[pos], canon[1][multi])):
+        raise AssertionError("count --bc lost or miscounted a k-mer seen twice")
+    extra = np.setdiff1d(got, canon[0][multi], assume_unique=True)
+    at = np.minimum(np.searchsorted(canon[0], extra), len(canon[0]) - 1)
+    if len(extra) and not (np.array_equal(canon[0][at], extra) and (canon[1][at] == 1).all()):
+        raise AssertionError("count --bc kept a k-mer the reads do not hold once")
+    if len(extra) > 0.02 * len(canon[0]) + 5:
+        raise AssertionError(f"count --bc kept {len(extra)} singletons (bloom false positives)")
+    out.update(bc_records=len(got), bc_multi_records=int(multi.sum()),
+               bc_false_positive_singletons=len(extra))
+
+    # 3. stats and histo of race20's .jf through the script
+    binpath = os.path.join(HERE, "bin", "jellyfish-tpu-torch")
+    t0 = time.perf_counter()
+    stats = subprocess.run([sys.executable, binpath, "stats", race_jf], check=True,
+                           capture_output=True, text=True, timeout=600).stdout
+    histo = subprocess.run([sys.executable, binpath, "histo", race_jf], check=True,
+                           capture_output=True, text=True, timeout=600).stdout
+    secs["stats_and_histo_subprocesses"] = time.perf_counter() - t0
+    distinct = int(re.search(r"Distinct:\s+(\d+)", stats).group(1))
+    if distinct != records:
+        raise AssertionError(f"stats: Distinct {distinct} != {records}")
+    h = np.bincount(np.minimum(counts, 10001).astype(np.int64), minlength=10002)
+    want = "".join(f"{c} {n}\n" for c, n in enumerate(h) if n)
+    if histo != want:
+        raise AssertionError("histo != the histogram of the counts")
+    if records_gate is not None and records != records_gate:
+        raise AssertionError(f"race20: {records} records != {records_gate}")
+    out.update(head_bytes=os.path.getsize(head), head_distinct=len(canon[0]),
+               seconds=secs, card=card)
+    log("jellyfish " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=5.0,
@@ -1063,16 +1250,16 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8",
-                    help="phases to run after 1-2, comma-separated (7 needs 6)")
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9",
+                    help="phases to run after 1-2, comma-separated (7 and 9 need 6)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--workdir", default=None,
                     help="scratch for db.jf/asm.fa/outputs (default "
                          ".smoke_work/ in the checkout; removed at the end)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if 7 in phases and 6 not in phases:
-        ap.error("phase 7 holds its tables against phase 6's")
+    if phases & {7, 9} and 6 not in phases:
+        ap.error("phases 7 and 9 hold their results against phase 6's")
     if not phases & {6, 8}:
         ap.error("the kernels line needs a driver path: phase 6 or 8")
 
@@ -1148,7 +1335,7 @@ def main(argv=None) -> int:
 
 
 def run_phases(args, phases, device, card: str, workdir: str, big):
-    """Phases 3-8; ``big`` waits for race100's data. Returns the driver
+    """Phases 3-9; ``big`` waits for race100's data. Returns the driver
     paths' reports, the main-shape probe rows and phase 3's rows."""
     import torch
 
@@ -1177,6 +1364,11 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                 phase_branches(reads, scanner.tab, drv["records"], peak_resident,
                                device, card)
             del scanner
+            torch.cuda.empty_cache()
+            if 9 in phases:
+                phase_jellyfish(reads, os.path.join(os.path.dirname(reads), "run",
+                                                    "mer_counts25.jf"),
+                                device, card, RACE_RECORDS if full else None)
         shutil.rmtree(os.path.dirname(reads))  # race20's files go before race100's run
         torch.cuda.empty_cache()
     if big is not None:

@@ -29,6 +29,13 @@ table from it when it fits the card; otherwise the scanner uploads the host
 table. Device->host pulls are asynchronous (pinned buffers, a side stream
 and an event). The host merge needs the native library and raises without
 it: there is no slower numpy path.
+
+count_reads also carries the jellyfish CLI's routes (pipeline/jf_cli.py):
+forward keys without -C, the -Q quality mask, a host key filter (--bc,
+--bf-size, --if: each chunk deduplicated on the host, filtered, and the
+kept keys pushed as a run), and the --disk dump of a built table whenever
+the ladder passes -s. FASTA/FASTQ files go through the C++ parser or raise;
+streams (-g) and SAM/BAM through the Python parser, their only one.
 """
 
 from __future__ import annotations
@@ -44,13 +51,15 @@ from jasper_tpu_torch.count.sorted_runs import (
     PartitionSliceOverflow,
     RunAccumulator,
     extract_windows,
+    key_order,
     make_run,
+    run_from_keys,
 )
 from jasper_tpu_torch.io import native_jf
 from jasper_tpu_torch.io.fastx import stream_codes, total_file_bytes
 from jasper_tpu_torch.ops.codes import CODE_N, encode
 from jasper_tpu_torch.ops.hashing import M32
-from jasper_tpu_torch.ops.kmer import canonical_windows_fast, words_per_kmer
+from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows, words_per_kmer
 from jasper_tpu_torch.table.build import build_table
 from jasper_tpu_torch.table.host_table import HostKmerTable, _require_native
 from jasper_tpu_torch.table.kmer_table import run_to_numpy
@@ -164,47 +173,108 @@ def _prefetch(it, depth: int = 3):
         yield item
 
 
-def count_reads(paths: Iterable[str], k: int, device, n_slots: int | None = None,
-                chunk_len: int = 1 << 23, progress=None, on_full_run=None,
-                partition=None, codes_sink=None, codes_source=None,
-                accumulator=None):
-    """Stream all reads in ``paths`` through a device ladder and return the
+def _python_parsed(p) -> bool:
+    """Inputs only the Python parser reads: a stream (a -g generator's
+    pipe) and SAM/BAM."""
+    return not isinstance(p, str) or p.endswith((".sam", ".sam.gz", ".bam"))
+
+
+def parse_chunks(paths: list, k: int, chunk_len: int,
+                 min_qual_char: str | None = None):
+    """stream_codes over ``paths`` with the parser chosen explicitly:
+    FASTA/FASTQ files go through the C++ parser, or raise when it cannot be
+    built, never through the ~100x slower Python parser in silence; streams
+    and SAM/BAM have only the Python parser (in jasper_tpu as well) and take
+    it. A list mixing the two kinds raises."""
+    python = [p for p in paths if _python_parsed(p)]
+    if python and len(python) < len(paths):
+        raise ValueError("cannot mix streams or SAM/BAM inputs (Python parser) "
+                         "with FASTA/FASTQ files (C++ parser) in one count")
+    return stream_codes(paths, k, chunk_len, min_qual_char, use_native=not python)
+
+
+def _unique_chunk_keys(codes: np.ndarray, k: int, canonical: bool):
+    """Host-side: unique (keys uint32 [U, W], multiplicities uint32 [U]) of
+    one code chunk, in key order (jasper_tpu/count/counter.py:41-57). The
+    windows and the sort are torch ops on the host's threads: jasper_tpu's
+    numpy window stack takes O(k) passes over the chunk and its lexsort one
+    thread."""
+    extract = canonical_windows_fast if canonical else forward_windows
+    keys, valid = extract(torch.from_numpy(codes), k)
+    keys = keys[valid]
+    if len(keys) == 0:
+        return np.zeros((0, keys.shape[1]), np.uint32), np.zeros(0, np.uint32)
+    keys = keys[key_order(keys)]
+    new_seg = torch.ones(len(keys), dtype=torch.bool)
+    new_seg[1:] = (keys[1:] != keys[:-1]).any(dim=1)
+    starts = torch.nonzero(new_seg).squeeze(1)
+    mult = torch.diff(starts, append=starts.new_tensor([len(keys)]))
+    return (keys[starts].numpy().astype(np.uint32), mult.numpy().astype(np.uint32))
+
+
+def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
+                chunk_len: int = 1 << 23, progress=None, canonical: bool = True,
+                min_qual_char: str | None = None, key_filter=None, on_full=None,
+                on_full_run=None, partition=None, codes_sink=None,
+                codes_source=None, accumulator=None):
+    """Stream all reads in ``paths`` (file paths, or readable binary streams
+    such as a -g generator's pipes) through a device ladder and return the
     accumulator (finish it with _finish_to_table, or pull it to the host).
 
-    on_full_run(acc) runs before a chunk whenever the ladder's settled lanes
-    pass ``n_slots``: the caller evicts the levels to the host, and counting
-    goes on in a fresh ladder (or in the injected ``accumulator``, which the
-    callback empties itself). partition=(p, P) counts only the p-th of P
-    hash partitions. codes_sink collects the parsed (codes, fill) chunks and
-    codes_source replays them in place of parsing. progress(n_chunks,
-    resident lanes) runs after every chunk."""
-    if (on_full_run is None) != (n_slots is None):
-        raise ValueError("on_full_run and n_slots go together")
+    canonical=False counts forward keys; min_qual_char drops FASTQ/SAM
+    bases of a lower quality character (-Q).
+
+    key_filter(unique keys uint32 [U, W], mults uint32 [U]) -> adjusted
+    mults is the prefilter behind `--bc`, `--bf-size` and `--if`: each chunk
+    is then extracted and deduplicated on the host, filtered, and only the
+    kept keys go to the device (run_from_keys) and into the ladder.
+
+    on_full(tab) runs before a chunk whenever the ladder's resident lanes
+    pass ``n_slots``: it gets the ladder's table, built on the device (int32
+    bits), and counting goes on in a fresh ladder (`--disk`). on_full_run(acc)
+    runs after that check whenever the settled lanes pass ``n_slots``: the
+    caller evicts the levels to the host, and counting goes on in a fresh
+    ladder (or in the injected ``accumulator``, which the callback empties
+    itself). partition=(p, P) counts only the p-th of P hash partitions.
+    codes_sink collects the parsed (codes, fill) chunks and codes_source
+    replays them in place of parsing. progress(n_chunks, resident lanes)
+    runs after every chunk."""
+    if (on_full is None and on_full_run is None) != (n_slots is None):
+        raise ValueError("n_slots goes with on_full or on_full_run")
     paths = list(paths)
     total_bytes = total_file_bytes(paths)
     # clamp the chunk to the input size (next power of two; .gz estimated at
     # 4x) so small runs don't pad tiny inputs to the full 8M-lane chunk
-    est = total_bytes * (4 if any(p.endswith(".gz") for p in paths) else 1)
+    est = total_bytes * (4 if any(isinstance(p, str) and p.endswith(".gz")
+                                  for p in paths) else 1)
     if est > 0:
         cap = 1 << max(14, (max(est, 4 * k) - 1).bit_length())
         chunk_len = min(chunk_len, cap)
     n_windows = chunk_len - k + 1
     acc = accumulator if accumulator is not None else RunAccumulator(
         unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
-    # use_native=True: the C++ FASTQ parser or an error, never the ~100x
-    # slower Python parser in silence (SAM input has only the Python one)
     chunks = (iter(codes_source) if codes_source is not None
-              else _prefetch(stream_codes(paths, k, chunk_len, use_native=True)))
+              else _prefetch(parse_chunks(paths, k, chunk_len, min_qual_char)))
     n_chunks = 0
     for codes, fill in chunks:
         if codes_sink is not None:
             codes_sink.append((codes, fill))
+        if on_full is not None and acc.n_resident_lanes() > n_slots:
+            on_full(_finish_to_table(acc, k)[0])
+            # jasper_tpu's fresh ladder takes its default stage, 8 units
+            acc = RunAccumulator(unit=acc.unit, stage_lanes=8 * acc.unit)
         if on_full_run is not None and acc.n_settled_lanes() > n_slots:
             on_full_run(acc)
             if accumulator is None:
                 acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
-        acc.push_raw(*extract_windows(torch.from_numpy(codes).to(device), k,
-                                      partition=partition))
+        if key_filter is None:
+            acc.push_raw(*extract_windows(torch.from_numpy(codes).to(device), k,
+                                          canonical=canonical, partition=partition))
+        else:
+            ukeys, mult = _unique_chunk_keys(codes, k, canonical)
+            mult = np.asarray(key_filter(ukeys, mult), dtype=np.uint32)
+            keep = mult > 0
+            acc.push(*run_from_keys(ukeys[keep], mult[keep], device))
         n_chunks += 1
         if progress is not None:
             progress(n_chunks, acc.n_resident_lanes())

@@ -22,25 +22,31 @@ Counts saturate at 2^32-1 on merge, as jasper_tpu's do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from jasper_tpu_torch.ops.hashing import M32, mix32
-from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows
 
 U32_MAX = M32
 _HALF = 1 << 31
 
 
-def _sort_cols(dead, h, keys) -> list[torch.Tensor]:
-    """The int64 sort keys of (dead, h, key words msb-first), least
-    significant first. A pair of words (hi, lo) packs as
-    (hi - 2^31) * 2^32 + lo: monotone in (hi, lo) and inside int64."""
+def _key_cols(keys) -> list[torch.Tensor]:
+    """The int64 sort keys of the key words msb-first, least significant
+    first. A pair of words (hi, lo) packs as (hi - 2^31) * 2^32 + lo:
+    monotone in (hi, lo) and inside int64."""
     W = keys.shape[1]
     cols = [keys[:, 0]] if W % 2 else []
     for j in range(W % 2, W, 2):
         cols.append((keys[:, j + 1] - _HALF) * (1 << 32) + keys[:, j])
-    cols.append(dead * (1 << 32) + h)
     return cols
+
+
+def _sort_cols(dead, h, keys) -> list[torch.Tensor]:
+    """The int64 sort keys of (dead, h, key words msb-first), least
+    significant first."""
+    return _key_cols(keys) + [dead * (1 << 32) + h]
 
 
 def _sort_pass(c, perm):
@@ -57,6 +63,11 @@ def _lexsort(cols) -> torch.Tensor:
     for c in cols:
         perm = _sort_pass(c, perm)
     return perm
+
+
+def key_order(keys) -> torch.Tensor:
+    """Permutation that sorts key words [B, W] (int64-held u32) by key."""
+    return _lexsort(_key_cols(keys))
 
 
 def _sort_by_key(h, keys, counts):
@@ -163,6 +174,24 @@ def flush_stage(key_parts, valid_parts):
     return _compact(*make_run_ones(keys, valid))
 
 
+def run_from_keys(keys: np.ndarray, counts: np.ndarray, device):
+    """Distinct host keys (uint32 [U, W]) and their counts (uint32 [U], all
+    > 0) -> a compacted run on ``device`` (jasper_tpu's run_from_keys, the
+    filtered count's push): padded with dead lanes to a power of two >= 64,
+    hashed and sorted by (h, key) there. Returns (h, keys, counts,
+    n_active) with n_active a 0-d tensor."""
+    U, W = keys.shape
+    B = max(64, 1 << (U - 1).bit_length()) if U else 64
+    kk = np.zeros((B, W), dtype=np.uint32)
+    cc = np.zeros(B, dtype=np.uint32)
+    kk[:U] = keys
+    cc[:U] = counts
+    # across the link as int32 bits, widened to int64-held u32 there
+    kt, ct = (torch.from_numpy(a.view(np.int32)).to(device).to(torch.int64) & M32
+              for a in (kk, cc))
+    return _compact(*_sort_by_key(mix32(kt), kt, ct))
+
+
 def _check_pow2(P: int) -> None:
     if P < 1 or P & (P - 1):
         raise ValueError(f"P = {P}: the partition count must be a power of two")
@@ -211,23 +240,29 @@ def flush_stage_split(key_parts, valid_parts, P: int, C: int, p0: int = 0,
     return tuple(hs), tuple(ks), tuple(cs), nacts, ovf
 
 
-def extract_windows(codes, k: int, partition=None):
+def extract_windows(codes, k: int, canonical: bool = True, partition=None):
     """Code chunk (uint8 tensor [L]) -> (keys int64 [n_out, W], valid bool
-    [n_out]), canonical, on the chunk's device: the staging feed of
-    RunAccumulator.push_raw.
+    [n_out]), on the chunk's device: the staging feed of
+    RunAccumulator.push_raw. canonical=False keeps the forward keys
+    (counting without -C).
 
-    jasper_tpu extracts in residue-grouped order and pads with invalid lanes
-    to 16 * ceil(n / 16). The order does not matter, because a sort follows,
-    so the port's positional extraction serves; the padding is kept so that
-    stage, flush and level lengths equal jasper_tpu's.
+    jasper_tpu's canonical extraction works in residue-grouped order and
+    pads with invalid lanes to 16 * ceil(n / 16). The order does not matter,
+    because a sort follows, so the port's positional extraction serves; the
+    padding is kept so that stage, flush and level lengths equal
+    jasper_tpu's. Its forward extraction gives the L-k+1 windows unpadded,
+    and so does this one.
 
     partition=(p, P), P a power of two, keeps only the windows whose mix32
     hash falls in the p-th of P equal top-bit ranges."""
-    keys, valid = canonical_windows_fast(codes, k)
-    pad = -keys.shape[0] % 16
-    if pad:
-        keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
+    if not canonical:
+        keys, valid = forward_windows(codes, k)
+    else:
+        keys, valid = canonical_windows_fast(codes, k)
+        pad = -keys.shape[0] % 16
+        if pad:
+            keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
+            valid = torch.cat([valid, valid.new_zeros(pad)])
     if partition is not None:
         p, P = partition
         if P < 1 or P & (P - 1) or not 0 <= p < P:
@@ -252,7 +287,7 @@ class RunAccumulator:
     jasper_tpu queues runs FIFO while their active count crosses its slow
     device-to-host link, and resolves the queue in order. Here the count is
     read at once with ``int()``; that queue then never holds more than one
-    run, so it reduces to the cascade in _push, and the levels are the ones
+    run, so it reduces to the cascade in push, and the levels are the ones
     jasper_tpu builds when its queue drains in step. With nothing pending,
     jasper_tpu's n_settled_lanes equals n_resident_lanes.
     """
@@ -276,7 +311,7 @@ class RunAccumulator:
         if not self._stage:
             return
         stage, self._stage, self._staged = self._stage, [], 0
-        self._push(*flush_stage([k for k, _ in stage], [v for _, v in stage]))
+        self.push(*flush_stage([k for k, _ in stage], [v for _, v in stage]))
 
     def _size_class(self, n_active: int) -> int:
         j = 0
@@ -299,7 +334,10 @@ class RunAccumulator:
             b = _pad_run(*b, a[0].shape[0])
         return merge_runs(*a, *b)
 
-    def _push(self, h, keys, counts, n_act):
+    def push(self, h, keys, counts, n_act):
+        """Add a compacted run (actives first, n_act of them) to the ladder,
+        merging down the size classes (a stage flush's output, a partition
+        slice, or run_from_keys's filtered keys)."""
         while True:
             j, run = self._truncate((h, keys, counts), int(n_act))
             if j not in self.levels:
@@ -382,7 +420,7 @@ class PartitionedRunAccumulator:
             raise PartitionSliceOverflow(
                 f"{ovf} actives past a partition slice capacity of {self.C} lanes")
         for acc, run in zip(self.accs, zip(hs, ks, cs, nacts)):
-            acc._push(*run)
+            acc.push(*run)
 
     def n_resident_lanes(self) -> int:
         return self._staged + sum(a.n_resident_lanes() for a in self.accs)

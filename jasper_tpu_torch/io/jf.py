@@ -1,7 +1,8 @@
-""".jf interchange on the port: copy of jasper_tpu/io/jf.py:1-290 (the
-binary/sorted and text/sorted readers and writers and the header code; the
-jellyfish-tpu CLI's ``standard_header_extras`` is left out) and the port's
-own ``load_jf_into_host_table``, which builds the port's HostKmerTable.
+""".jf interchange on the port: copy of jasper_tpu/io/jf.py:1-315 (the
+binary/sorted and text/sorted readers and writers, the header code, the
+jellyfish CLI's ``standard_header_extras`` and ``dump_table_to_jf``) and
+the port's own ``load_jf_into_host_table``, which builds the port's
+HostKmerTable.
 
 Jellyfish .jf "binary/sorted" file interchange.
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 
 import numpy as np
 
@@ -282,3 +284,26 @@ def load_jf_into_host_table(path: str, load_factor: float | None = None):
     """.jf -> (HostKmerTable, header); the records of a .jf are distinct."""
     k, keys, counts, header = read_any_jf(path)
     return HostKmerTable.from_records(k, keys, counts, load_factor), header
+
+
+def standard_header_extras(argv=None) -> dict:
+    """The reference's fill_standard keys (generic_file_header.hpp:119+):
+    hostname, pwd, exe, time, cmdline — recorded so `info -c` can print the
+    creating command (jasper_tpu/io/jf.py:181-195)."""
+    import datetime
+    import socket
+    import sys
+
+    return {
+        "hostname": socket.gethostname(),
+        "pwd": os.getcwd(),
+        "exe": sys.argv[0],
+        "time": datetime.datetime.now().ctime(),
+        "cmdline": list(sys.argv if argv is None else argv),
+    }
+
+
+def dump_table_to_jf(path: str, host_table, counter_len: int = 4, **kw):
+    """Write the records of a host table (jasper_tpu/io/jf.py:313-315)."""
+    keys, counts = host_table.items()
+    write_jf(path, host_table.k, keys, counts.astype(np.uint64), counter_len=counter_len, **kw)

@@ -6,10 +6,15 @@ raise on it), so every value here is an int64 holding a uint32 in
 [0, 2^32). Products are formed from 16-bit halves of the constant so no
 int64 product overflows, and every left shift is masked back to 32 bits.
 The CUDA probe (csrc/probe.cu) computes the same hash in native uint32.
+
+The host helpers at the end (hash_words_np, home_of_int) are the numpy and
+int forms the host table's scalar probe uses (counterparts of
+jasper_tpu/ops/hashing.py:49-52,88-92).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -62,3 +67,41 @@ def home_of(h: torch.Tensor, n_buckets: int) -> torch.Tensor:
     if n_buckets >= 1 << 31:
         raise ValueError(f"n_buckets {n_buckets} >= 2^31")
     return (h * int(n_buckets)) >> 32
+
+
+# -- host (numpy / int) helpers: the host table's queries ---------------------
+# (jasper_tpu/ops/hashing.py:23-92 on numpy; numpy has uint32 arithmetic)
+
+
+def _rotl_np(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def hash_words_np(words: np.ndarray) -> np.ndarray:
+    """mix32 of uint32 key words [..., W] on the host -> uint32 [...]."""
+    u = np.uint32
+    words = np.asarray(words).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        h = np.full(words.shape[:-1], _SEED, dtype=np.uint32)
+        W = words.shape[-1]
+        for j in range(W):
+            kx = words[..., j] * u(_C1)
+            kx = _rotl_np(kx, 15)
+            kx = kx * u(_C2)
+            h = h ^ kx
+            h = _rotl_np(h, 13)
+            h = h * u(5) + u(0xE6546B64)
+        h = h ^ u(4 * W)
+        h = h ^ (h >> u(16))
+        h = h * u(0x85EBCA6B)
+        h = h ^ (h >> u(13))
+        h = h * u(0xC2B2AE35)
+        h = h ^ (h >> u(16))
+    return h
+
+
+def home_of_int(h: int, n_buckets: int) -> int:
+    """Scalar twin of home_of (the host table's scalar probe)."""
+    if n_buckets <= 1:
+        return 0
+    return ((h & M32) * n_buckets) >> 32

@@ -10,9 +10,13 @@ jasper_tpu groups windows by i mod 16 so that its slices stay static under
 jit; eager torch takes a per-lane shift instead and emits positional order
 directly. Words are int64 values in [0, 2^32) (see ops/hashing.py).
 
+forward_windows gives the forward keys alone (counting without -C). Both
+also serve the host (on CPU tensors) where jasper_tpu runs its numpy
+window stack: the filtered count's dedupe and the host table's queries.
+
 Also the host (numpy / int) helpers of jasper_tpu/ops/kmer.py:24-31 and
-229-254, copied as they are: key widths and the scalar conversions the .jf
-text format uses.
+229-274, copied as they are: key widths, the scalar conversions of the .jf
+text format and the dump's batch decoder.
 """
 
 from __future__ import annotations
@@ -70,11 +74,7 @@ def _funnel(P: torch.Tensor, start: torch.Tensor, W: int, top_mask: int):
     return torch.stack(words, dim=-1)
 
 
-def canonical_windows_fast(codes: torch.Tensor, k: int):
-    """codes uint8 [L] (0..3 = ACGT; anything > 3 — N, invalid, the 255
-    padding — marks a bad base) -> (keys int64 [L-k+1, W], valid bool
-    [L-k+1]), positional order. Keys of invalid windows are the same
-    garbage jasper_tpu produces (codes & 3); callers mask them."""
+def _windows(codes: torch.Tensor, k: int, canonical: bool):
     L = int(codes.shape[0])
     n = L - k + 1
     W = words_per_kmer(k)
@@ -84,15 +84,15 @@ def canonical_windows_fast(codes: torch.Tensor, k: int):
                 torch.zeros(0, dtype=torch.bool, device=dev))
     base = (codes & 3).to(torch.int64)
     n_words = (L >> 4) + W + 2
-    comp = _pack_stream(3 - base, n_words)
     rev = _pack_stream(torch.flip(base, dims=(0,)), n_words)
     top_bits = 2 * k - 32 * (W - 1)
     top_mask = M32 if top_bits == 32 else (1 << top_bits) - 1
 
     i = torch.arange(n, dtype=torch.int64, device=dev)
-    rc = _funnel(comp, i, W, top_mask)
-    fwd = _funnel(rev, (L - k) - i, W, top_mask)
-    keys = torch.where(words_le(fwd, rc)[:, None], fwd, rc)
+    keys = _funnel(rev, (L - k) - i, W, top_mask)
+    if canonical:
+        rc = _funnel(_pack_stream(3 - base, n_words), i, W, top_mask)
+        keys = torch.where(words_le(keys, rc)[:, None], keys, rc)
 
     bad = (codes > 3).to(torch.int32)
     cs = torch.zeros(L + 1, dtype=torch.int32, device=dev)
@@ -101,8 +101,24 @@ def canonical_windows_fast(codes: torch.Tensor, k: int):
     return keys, valid
 
 
+def canonical_windows_fast(codes: torch.Tensor, k: int):
+    """codes uint8 [L] (0..3 = ACGT; anything > 3 — N, invalid, the 255
+    padding — marks a bad base) -> (keys int64 [L-k+1, W], valid bool
+    [L-k+1]), positional order. Keys of invalid windows are the same
+    garbage jasper_tpu produces (codes & 3); callers mask them."""
+    return _windows(codes, k, canonical=True)
+
+
+def forward_windows(codes: torch.Tensor, k: int):
+    """The forward (not canonicalized) key of every window, as
+    canonical_windows_fast gives them: jellyfish's counting without -C
+    (jasper_tpu/ops/kmer.py:99-105). Returns (keys int64 [L-k+1, W], valid
+    bool [L-k+1]), positional order."""
+    return _windows(codes, k, canonical=False)
+
+
 # ---------------------------------------------------------------------------
-# Host-side scalar helpers (.jf text format)
+# Host-side scalar helpers (.jf text format; jasper_tpu/ops/kmer.py:229-274)
 
 
 def kmer_to_int(seq: str) -> int:
@@ -131,3 +147,19 @@ def words_to_int(words) -> int:
     for j in range(len(words) - 1, -1, -1):
         v = (v << 32) | int(words[j])
     return v
+
+
+_BASE_LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def decode_keys_ascii(keys: np.ndarray, k: int) -> np.ndarray:
+    """Packed key words [N, W] uint32 -> ASCII base matrix [N, k] uint8:
+    the batch inverse of the 2-bit packing (first base in the highest bit
+    pair), k vector ops instead of N*k Python ops (the streaming dump)."""
+    keys = np.ascontiguousarray(keys, dtype=np.uint32)
+    n = keys.shape[0]
+    codes = np.empty((n, k), np.uint8)
+    for p in range(k):
+        b = 2 * (k - 1 - p)
+        codes[:, p] = (keys[:, b >> 5] >> np.uint32(b & 31)).astype(np.uint8) & 3
+    return _BASE_LUT[codes]

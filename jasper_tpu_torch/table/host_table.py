@@ -1,18 +1,30 @@
 """Host (numpy) count table, jax-free.
 
-Copy of jasper_tpu.table.host_table.HostKmerTable (construction side): that
-module imports jasper_tpu.table.kmer_table, and with it jax, at load. Layout
-and hash are identical, so ``tab`` is byte-identical to jasper_tpu's for the
-same records and load factor, and a jasper_tpu table (``HostKmerTable.tab``
-or ``np.asarray`` of a device table) drops in unchanged.
+Copy of jasper_tpu.table.host_table.HostKmerTable (construction, and the
+queries of host_table.py:34-40,165-268 that the jellyfish CLI's ``query``
+and ``--if`` and the ``dna_jellyfish`` bindings use): that module imports
+jasper_tpu.table.kmer_table, and with it jax, at load. Layout and hash are
+identical, so ``tab`` is byte-identical to jasper_tpu's for the same
+records and load factor, and a jasper_tpu table (``HostKmerTable.tab`` or
+``np.asarray`` of a device table) drops in unchanged. The queries stay on
+the host, as in jasper_tpu; the polish scan's lookups run on the device
+(table/probe.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from jasper_tpu_torch.io import native_jf
-from jasper_tpu_torch.ops.kmer import key_bytes, words_per_kmer
+from jasper_tpu_torch.ops.codes import encode
+from jasper_tpu_torch.ops.hashing import hash_words_np, home_of_int
+from jasper_tpu_torch.ops.kmer import (
+    canonical_windows_fast,
+    forward_windows,
+    key_bytes,
+    words_per_kmer,
+)
 from jasper_tpu_torch.table.layout import (
     PAD_BUCKETS,
     ROW_U32,
@@ -20,6 +32,7 @@ from jasper_tpu_torch.table.layout import (
     slot_words_for,
     slots_for,
 )
+from jasper_tpu_torch.table.probe import lookup_kmers_plain
 
 
 class HostKmerTable:
@@ -69,6 +82,80 @@ class HostKmerTable:
                 return cls(k, flat.reshape(n_buckets + PAD_BUCKETS, ROW_U32))
             del flat
             n_slots *= 2
+
+    @classmethod
+    def empty(cls, k: int, n_slots: int) -> "HostKmerTable":
+        W = words_per_kmer(k)
+        n_buckets = max(1, -(-n_slots // (ROW_U32 // slot_words_for(W))))
+        return cls(k, np.zeros((n_buckets + PAD_BUCKETS, ROW_U32), dtype=np.uint32))
+
+    # -- queries (copies of jasper_tpu/table/host_table.py:165-268) ----------
+
+    def lookup_words(self, keys: np.ndarray, valid: np.ndarray | None = None) -> np.ndarray:
+        """Counts (uint32 [B]) of keys uint32 [B, W], 0 for absent keys and
+        invalid lanes: jasper_tpu's vectorized host probe (the device
+        lookup's chain walk), run as the probe's plain torch twin on host
+        tensors viewing the same memory (torch's threads; numpy's
+        one-thread row gathers were ~10x slower at 6 M keys)."""
+        keys = np.ascontiguousarray(keys, dtype=np.uint32)
+        ok = (torch.ones(len(keys), dtype=torch.bool) if valid is None
+              else torch.from_numpy(np.asarray(valid, dtype=bool)))
+        cnt = lookup_kmers_plain(torch.from_numpy(self.tab.view(np.int32)),
+                                 torch.from_numpy(keys.view(np.int32)), ok)
+        return cnt.numpy().view(np.uint32)
+
+    def lookup_one(self, key: np.ndarray) -> int:
+        """Scalar probe (key uint32 [W]) in plain ints and a few numpy slot
+        compares."""
+        W, S = self.W, self.slots
+        h = int(hash_words_np(np.asarray(key, dtype=np.uint32)[None])[0])
+        b = home_of_int(h, self.n_buckets)
+        last = self.n_buckets + PAD_BUCKETS - 1
+        while True:
+            row = self.tab[b]
+            cnts = row[W * S : (W + 1) * S]
+            occ = cnts != 0
+            eq = occ.copy()
+            for w in range(W):
+                eq &= row[w * S : (w + 1) * S] == key[w]
+            if eq.any():
+                return int(cnts[eq.argmax()])
+            if (~occ).any() or b >= last:
+                return 0
+            b += 1
+
+    def query_codes(self, seq_codes: np.ndarray) -> np.ndarray:
+        """Counts for every k-mer window of a code array (canonicalized;
+        invalid windows -> 0)."""
+        if seq_codes.shape[0] < self.k:
+            return np.zeros(max(0, seq_codes.shape[0] - self.k + 1), dtype=np.uint32)
+        keys, valid = canonical_windows_fast(torch.from_numpy(seq_codes), self.k)
+        return self.lookup_words(keys.numpy().astype(np.uint32), valid.numpy())
+
+    def query_str(self, mer: str, canonical: bool = True) -> int:
+        """Count of one k-mer given as a string; 0 if wrong length or invalid.
+        canonical=False probes the forward-strand key (for non-canonical
+        databases, jellyfish query_main.cc:44-52)."""
+        if len(mer) != self.k:
+            return 0
+        c = encode(mer)
+        if (c > 3).any():
+            return 0
+        extract = canonical_windows_fast if canonical else forward_windows
+        keys, _ = extract(torch.from_numpy(c), self.k)
+        return int(self.lookup_words(keys.numpy().astype(np.uint32))[0])
+
+    def items(self):
+        """(keys uint32 [N, W], counts uint32 [N]) over occupied slots, in
+        slot order."""
+        W, S = self.W, self.slots
+        cnts = self.tab[:, W * S : (W + 1) * S].ravel()
+        occ = cnts != 0
+        keys = np.stack(
+            [self.tab[:, w * S : (w + 1) * S].ravel()[occ] for w in range(W)],
+            axis=-1,
+        )
+        return keys, cnts[occ]
 
 
 def _require_native() -> None:

@@ -1,8 +1,9 @@
 """The port runs with jax and jasper_tpu absent: a subprocess blocks
 ``import jax`` and ``import jasper_tpu`` before any other import (this test
 process cannot: tests/conftest.py imports jax), then drives
-``jasper_tpu_torch.polish.runner`` and the pipeline CLI
-(``jasper_tpu_torch.pipeline.cli``) on the CPU end to end."""
+``jasper_tpu_torch.polish.runner``, the pipeline CLI
+(``jasper_tpu_torch.pipeline.cli``) and bin/jellyfish-tpu-torch's count and
+dump on the CPU end to end."""
 
 import os
 import subprocess
@@ -124,3 +125,58 @@ def _pipeline_without_jax(tmp_path, extra_env):
         polished = (tmp_path / wd / "asm.fa.polished.fasta").read_text()
         assert polished == f">ctg\n{genome}\n", wd
     return r.stdout
+
+
+JF_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
+
+    def run(*argv):
+        sys.argv = ["jellyfish-tpu-torch", *argv]
+        try:
+            runpy.run_path(BIN, run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, (argv, e.code)
+
+    run("count", "-m", "25", "-s", "1M", "-C", "-o", "c.jf", "--device", "cpu",
+        "reads.fq")
+    sys.stdout.flush()
+    run("dump", "-c", "-o", "dump.txt", "c.jf")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
+    assert not loaded, loaded
+    print("NOJAX_JF_OK")
+""")
+
+
+def test_jellyfish_cli_runs_without_jax(tmp_path):
+    """bin/jellyfish-tpu-torch count --device cpu and dump, with jax and
+    jasper_tpu blocked: the dump holds every canonical 25-mer of the reads
+    with its count."""
+    rng = np.random.default_rng(3)
+    genome = G.random_genome(rng, 3000)
+    reads = G.tiled_reads(genome, read_len=100, stride=7)
+    with open(tmp_path / "reads.fq", "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    script = f"BIN = {os.path.join(REPO, 'bin', 'jellyfish-tpu-torch')!r}\n" + JF_SCRIPT
+    r = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "NOJAX_JF_OK" in r.stdout
+    want: dict = {}
+    for read in reads:
+        keys, valid = canonical_windows(np, encode(read), K)
+        for row in keys[valid]:
+            want[tuple(row)] = want.get(tuple(row), 0) + 1
+    got = {}
+    for line in (tmp_path / "dump.txt").read_text().splitlines():
+        mer, count = line.split()
+        got[mer] = int(count)
+    from jasper_tpu.ops.kmer import int_to_kmer, words_to_int
+
+    assert got == {int_to_kmer(words_to_int(k_), K): c for k_, c in want.items()}

@@ -1,5 +1,5 @@
-"""The port stands on its own: no module of jasper_tpu_torch, chip_smoke.py
-or bin/jasper-tpu-torch imports jasper_tpu (an AST scan, lazy imports
+"""The port stands on its own: no module of jasper_tpu_torch, chip_smoke.py,
+bin/jasper-tpu-torch or bin/jellyfish-tpu-torch imports jasper_tpu (an AST scan, lazy imports
 inside functions included), and the port's copies of jasper_tpu's host
 modules give jasper_tpu's results exactly, at k=25 and k=37: the repair
 walk (PolishEngine.run_pass with the port's CountSource), the .jf writers
@@ -38,7 +38,8 @@ KS = [25, 37]
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bin", "jasper-tpu-torch")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bin", "jasper-tpu-torch"),
+           os.path.join(REPO, "bin", "jellyfish-tpu-torch")]
     for root, _dirs, files in os.walk(os.path.join(REPO, "jasper_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
