@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9] [--seed 7] [--workdir DIR]
+                          [--phases 3,4,5,6,7,8,9,10,11,12] [--seed 7] [--workdir DIR]
+                          [--ab-probe OTHER_probe.cu]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
@@ -12,7 +13,10 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      table and a dense (load >= 0.85) one, 4 M lanes of present, absent and
      invalid keys; the kernel's and the plain twin's ms from CUDA events,
      the kernel's bound (the bytes its inputs, probed rows and output must
-     move at 3.35 TB/s) and its share of that bound;
+     move at 3.35 TB/s) and its share of that bound; on the fast-load
+     tables also the ranged kernel (the partitioned scan's probe) against
+     its plain twin, bit for bit, on the table cut into 4 slices, with ms,
+     bound and share summed over the slices;
   4. the runner path: a --genome-mbp slice of the race configuration (one
      contig with a sub/del/ins error every ~4 kb, k=25, 2 passes + the QV
      pass, threshold 5, a synthetic table of 55,718,396 records per 20 Mbp)
@@ -20,7 +24,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      Checks: the probe kernel launched, the native repair queries are bound,
      >= 99% of the injected errors repaired, QV after > QV before;
   5. counting: the race reads (tools/race_reference.make_data, 40x of 250 bp,
-     --seed) are generated; the port's count_reads_to_host counts their first
+     --seed; made in a child process beside phases 3-4); the port's
+     count_reads_to_host counts their first
      40 Mbp on the card, held against an independent numpy count (distinct
      keys and counts equal), the device-built table (K5) against the native
      host-built one and K7 against the counts' histogram;
@@ -38,7 +43,10 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      sorted_runs steps; the peak device memory of every sorting step against
      the resident lanes; and the share of injected errors repaired. Then the
      probe at this path's shape (one 4 M-window tile of the draft against
-     the counted table), kernel vs plain, and the tile's scan by stage;
+     the counted table), kernel vs plain, the tile's scan by stage
+     (scan_counts, then classify_tiled: classification on the card and the
+     pull), and the replicated pass's scan of the whole draft against PR
+     5's, in turns (scan_ab, arrays equal);
   7. the race reads through every other counting branch on the card:
      count_reads_to_host forced (jasper_tpu's own variables) to 4 partitions
      in 2 passes, to 4 partitions in 4 passes, and, with scale_finish_lanes
@@ -58,19 +66,42 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      step past the lane multiple. Reports P, G, the stage seconds, the
      resident lanes per pass, the device ms of the split flushes and the
      peak device memory;
-  9. the jellyfish-compatible entry point (bin/jellyfish-tpu-torch), after
-     phase 7 on race20's files: `count -m 25 -s <reads bytes / 10> -C` of the
-     whole reads on the card through jf_cli.main in this process, its
+  9. the jellyfish-compatible entry point (bin/jellyfish-tpu-torch), on
+     race20's files in a child process that starts after phase 11 and runs
+     beside phases 7 and 10 (whose seconds therefore share the card): `count -m 25 -s <reads bytes / 10> -C` of the
+     whole reads on the card through jf_cli.main in that process, its
      records equal to the .jf phase 6's driver wrote (55,718,396 at 20000
      kb), with its Counting and Writing seconds and peak device memory; on
-     the first 40 Mbp of reads, count without -C against a forward numpy
+     the first 20 Mbp of reads, count without -C against a forward numpy
      oracle, count --disk (>= 2 intermediates) and count --if race20.jf
      against the canonical oracle, bc then count --bc (every k-mer seen
      twice present with its count, extras only singletons); stats and histo
-     of race20.jf through the script in a subprocess.
+     of race20.jf through the script in a subprocess;
+ 10. the out-of-core polish scan, after phase 7 on race20's files: the
+     driver on -j with phase 6's .jf and a JASPER_TPU_HBM_BUDGET that cuts
+     the table into 4 slices. Gates: phase 6's polished FASTA and fixes.csv
+     byte for byte, threshold 5 and QV 36.14958 -> 71.42679 at 20000 kb,
+     ranged launches (counts reset just before) and no unranged one, and
+     the run's peak device memory below the whole table plus one scan
+     tile's working set. Reports the slice pushes (seconds, GB/s), the
+     scan seconds, the stages. Before phase 9's child starts: the ranged
+     kernel at this path's shape (one 4 M-window tile of the draft against
+     each slice of phase 6's table), kernel vs plain;
+ 11. the claim-round insert (K8, torch ops), before phase 9's child
+     starts: race20's records (phase 6's table) in 4 M-record batches into an empty table of K5's
+     shape, nothing pending, every record placed and looked up to its
+     count through K1, timed against build_from_run of the same records
+     (whose table equals the host one); then 16 M k=37 records at phase
+     3's k=37 shape, with the same gates;
+ 12. after phase 8, race100's table pulled to the host once and its draft
+     scanned by the partitioned scanner forced to 4 slices: counts, valid
+     and unsafe equal to the replicated scanner's bit for bit; the push
+     seconds and rate, the scan seconds against the replicated scan's and
+     the peak device memory.
 
 After the last phase the script fails if any module of the JAX package
-(``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process. It ends
+(``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
+child checks its own). It stops every process it started. It ends
 with a JSON line of the kernels, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA device or outside a checkout of the repository.
@@ -106,6 +137,11 @@ M32 = 0xFFFFFFFF
 # paper) x 132 SMs x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+RANGED_DESIGN = ("the bucket probe's warp design with the range compare compiled in "
+                 "(a template flag): the home is taken over the whole table, lanes "
+                 "homed outside the slice fetch no row; ms, bound and plain_ms are "
+                 "summed over the 4 slices one tile of windows is looked up in")
+AB_PROBE = None  # --ab-probe: another probe.cu's unranged lookup, timed in turns
 PROBE_DESIGN = ("a warp per 32 lanes: coalesced key loads, hash per thread, every "
                 "pending lane's 256 B row fetched at once with cp.async into shared "
                 "memory (16 B a thread), slot-parallel compare with __ballot_sync "
@@ -154,10 +190,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def probed_rows(tab, keys, valid) -> int:
+def probed_rows(tab, keys, valid, n_global=None, b0=None) -> int:
     """Rows the probe chain reads for these inputs: every valid lane's home
     row, and the next row of every lane still pending (the plain twin's
-    rounds, counted)."""
+    rounds, counted). Ranged (``tab`` a slice of a table of ``n_global``
+    buckets from bucket ``b0``): only the lanes homed in the slice."""
     import torch
 
     from jasper_tpu_torch.ops.hashing import home_of, mix32
@@ -165,7 +202,11 @@ def probed_rows(tab, keys, valid) -> int:
     from jasper_tpu_torch.table.layout import PAD_BUCKETS
 
     n_buckets = tab.shape[0] - PAD_BUCKETS
-    home = home_of(mix32(keys), n_buckets)
+    if n_global is None:
+        home = home_of(mix32(keys), n_buckets)
+    else:
+        home = home_of(mix32(keys), n_global) - b0
+        valid = valid & (home >= 0) & (home < n_buckets)
     lanes = torch.nonzero(valid, as_tuple=True)[0]
     rows = 0
     for off in range(PAD_BUCKETS + 2):
@@ -178,17 +219,20 @@ def probed_rows(tab, keys, valid) -> int:
     return rows
 
 
-def probe_bound(tab, keys, valid) -> dict:
-    """The least time the card could take for one probe call on these
-    inputs: each lane's key words, valid flag and 4-byte count, and each
-    probed 256-byte row, moved once at HBM_BYTES_PER_S; against the hash
-    (~8 int32 ops a word + 10 for the finish) and the slot compares
-    (W + 2 a slot of a probed row) at INT32_OPS_PER_S."""
+def probe_bound(tab, keys, valid, calls: int = 1, rows=None) -> dict:
+    """The least time the card could take for ``calls`` probe calls on these
+    inputs (each one slice of a partitioned table when ``calls`` > 1, its
+    probed rows summed in ``rows``): each lane's key words, valid flag and
+    4-byte count per call, and each probed 256-byte row, moved once at
+    HBM_BYTES_PER_S; against the hash (~8 int32 ops a word + 10 for the
+    finish) per call and the slot compares (W + 2 a slot of a probed row)
+    at INT32_OPS_PER_S."""
     B, W = keys.shape
     S = 64 // (W + 1)
-    rows = probed_rows(tab, keys, valid)
-    nbytes = B * (4 * W + 1 + 4) + rows * 256
-    ops = B * (8 * W + 10) + rows * S * (W + 2)
+    if rows is None:
+        rows = probed_rows(tab, keys, valid)
+    nbytes = calls * B * (4 * W + 1 + 4) + rows * 256
+    ops = calls * B * (8 * W + 10) + rows * S * (W + 2)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return {"probed_rows": rows, "bound_bytes": nbytes, "bound_ops": ops,
@@ -218,8 +262,102 @@ def compare_probe(tab, keys, valid, iters=(20, 5)) -> dict:
     res["plain_ms"] = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid), iters[1])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
     res["launches_in_comparison"] = probe.LAUNCHES - launches0
+    if AB_PROBE is not None:  # the other kernel against this one, in turns
+        if not torch.equal(AB_PROBE(tab, keys, valid), got):
+            raise AssertionError("--ab-probe kernel != this checkout's")
+        res["ab_ms"] = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other", "other", "this"):
+            fn = AB_PROBE if who == "other" else probe.lookup_kmers_cuda
+            res["ab_ms"][who].append(cuda_ms(lambda: fn(tab, keys, valid), iters[0]))
     res["kernel_lookups_per_s"] = B / (res["ms"] / 1e3)
     res["plain_lookups_per_s"] = B / (res["plain_ms"] / 1e3)
+    return res
+
+
+def other_probe(path: str):
+    """``--ab-probe``: build another version of csrc/probe.cu with the
+    checkout's nvcc flags and bind its jt_probe_lookup (the same C
+    interface) -> lookup(tab, keys, valid) on the current stream."""
+    import ctypes
+
+    import torch
+
+    from jasper_tpu_torch.table import _build, probe
+
+    so = os.path.join(_build.BUILD_DIR, "libjt_ab_probe.so")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc {path} failed:\n{r.stderr}")
+    fn = ctypes.CDLL(so).jt_probe_lookup
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def lookup(tab, keys, valid):
+        n_buckets, W, S = probe._check_cuda(tab, keys, valid)
+        out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
+        if fn(tab.data_ptr(), keys.data_ptr(), valid.data_ptr(), out.data_ptr(),
+              keys.shape[0], n_buckets, W, S, keys.device.index or 0,
+              torch.cuda.current_stream(keys.device).cuda_stream):
+            raise RuntimeError(f"{path}: jt_probe_lookup failed")
+        return out
+
+    return lookup
+
+
+def slices_budget(n_buckets: int, P: int) -> int:
+    """A JASPER_TPU_HBM_BUDGET that cuts a table of n_buckets into P slices
+    (the partitioned scanner's formula)."""
+    from jasper_tpu_torch.table.layout import PAD_BUCKETS
+
+    return (-(-n_buckets // P) + PAD_BUCKETS) * 256
+
+
+def compare_ranged(host, keys, valid, device, P: int = 4, iters=(20, 5)) -> dict:
+    """The ranged kernel against its plain twin on the same CUDA tensors,
+    slice by slice of ``host``'s table cut into P slices as the partitioned
+    scanner cuts it (each pushed into the card's slice buffer), bit for
+    bit; ms and plain_ms summed over the P slices (the time to answer the
+    lanes from the whole table), the bound over the P calls (every lane's
+    key, flag and count once per slice, the in-range lanes' rows) and the
+    kernel's share of it."""
+    import torch
+
+    from jasper_tpu_torch.parallel.scanner import PartitionedDeviceScanner
+    from jasper_tpu_torch.table import probe
+
+    scan = PartitionedDeviceScanner(host, host.k, slices_budget(host.n_buckets, P), device)
+    if scan.P != P:
+        raise AssertionError(f"{scan.P} slices, not {P}")
+    N = scan.n_global
+    res = {"slices": P, "lanes": int(keys.shape[0]), "ms": 0.0, "plain_ms": 0.0,
+           "max_abs_err": 0, "hit_lanes": [], "push_s": 0.0}
+    rows = 0
+    for p in range(P):
+        t0 = time.perf_counter()
+        b0 = scan.push(p)
+        res["push_s"] += time.perf_counter() - t0
+        got = probe.lookup_kmers_ranged_cuda(scan.tab, keys, valid, N, b0)
+        want = probe.lookup_kmers_ranged_plain(scan.tab, keys, valid, N, b0)
+        torch.cuda.synchronize()
+        err = int(((got.to(torch.int64) & M32) - (want.to(torch.int64) & M32))
+                  .abs().max()) if got.numel() else 0
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ranged probe kernel != plain on slice {p} "
+                                 f"(max abs err {err})")
+        res["ms"] += cuda_ms(lambda: probe.lookup_kmers_ranged_cuda(
+            scan.tab, keys, valid, N, b0), iters[0])
+        res["plain_ms"] += cuda_ms(lambda: probe.lookup_kmers_ranged_plain(
+            scan.tab, keys, valid, N, b0), iters[1])
+        rows += probed_rows(scan.tab, keys, valid, N, b0)
+        res["hit_lanes"].append(int((got != 0).sum()))
+    res.update(probe_bound(scan.tab, keys, valid, calls=P, rows=rows))
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["slice_bytes"] = scan.slice_bytes
+    del scan
+    torch.cuda.empty_cache()
     return res
 
 
@@ -301,6 +439,8 @@ def phase_probe(rng, device, card: str) -> list[dict]:
                        table_bytes=int(host.tab.nbytes), pad_slots_used=pad_used,
                        chained_lanes=chained, build_s=time.perf_counter() - t0,
                        card=card)
+            if name == "fast":  # the ranged kernel on the table cut into 4 slices
+                res["ranged"] = compare_ranged(host, qt, vt, device)
             log("probe " + json.dumps(res))
             rows.append(res)
             del tab, qt, vt, host
@@ -472,34 +612,115 @@ def phase_runner(args, rng, device, workdir: str) -> dict:
 def phase_main_shape(scanner, draft: bytes, device, launches: int, card: str,
                      k: int = 25) -> dict:
     """The probe at the main path's shape — one scan tile of draft windows
-    against the race table — kernel vs plain, and that
-    tile's scan timed stage by stage. ``launches`` is the driver path's
-    count of probe launches."""
-    import torch
-
+    against the race table — kernel vs plain, and that tile's scan timed
+    stage by stage as the replicated scanner runs it (scan_counts:
+    extraction and the probe; classify_tiled: the classification on the
+    card and the pull of counts, valid and unsafe). Then the replicated
+    pass's scan of the whole draft (scan_ab). ``launches`` is the driver
+    path's count of probe launches."""
     from jasper_tpu_torch.ops.kmer import canonical_windows_fast
-    from jasper_tpu_torch.polish.window import scan_window
+    from jasper_tpu_torch.polish.window import classify, classify_tiled, scan_counts
     from jasper_tpu_torch.table.probe import to_i32_bits
 
-    lut = np.full(256, 5, np.uint8)
-    lut[np.frombuffer(b"ACGTN", np.uint8)] = [0, 1, 2, 3, 4]
-    n = min(LANES, len(draft) - k + 1)
-    chunk = torch.from_numpy(lut[np.frombuffer(draft[: n + k - 1], np.uint8)]).to(device)
+    chunk = draft_tile(draft, device, k)
     keys, valid = canonical_windows_fast(chunk, k)
     k32 = to_i32_bits(keys)
     res = compare_probe(scanner.tab, k32, valid)
     res.update(main_path_launches=launches, table_bytes=int(scanner.tab.numel() * 4),
                card=card)
-    c, b, r = scan_window(scanner.tab, chunk, 5, k)
+    counts = scan_counts(scanner.tab, chunk, k)
     res["stages_ms"] = {
         "extract": cuda_ms(lambda: canonical_windows_fast(chunk, k), 5),
         "to_int32_bits": cuda_ms(lambda: to_i32_bits(keys), 5),
         "probe_kernel": res["ms"],
-        "scan_window_total": cuda_ms(lambda: scan_window(scanner.tab, chunk, 5, k), 5),
-        "to_host": cuda_ms(lambda: (to_i32_bits(c).cpu(), b.cpu(), r.cpu()), 5),
+        "scan_counts_total": cuda_ms(lambda: scan_counts(scanner.tab, chunk, k), 5),
+        "classify": cuda_ms(lambda: classify(chunk, counts, 5, k), 5),
+        "classify_and_pull": cuda_ms(lambda: classify_tiled(chunk, counts, 5, k), 5),
     }
+    res["scan_ab"] = scan_ab(scanner.tab, draft, k)
     log("main-shape probe " + json.dumps(res))
     return res
+
+
+def draft_tile(draft: bytes, device, k: int = 25):
+    """The codes of the draft's first scan tile (LANES windows) on the card."""
+    import torch
+
+    lut = np.full(256, 5, np.uint8)
+    lut[np.frombuffer(b"ACGTN", np.uint8)] = [0, 1, 2, 3, 4]
+    n = min(LANES, len(draft) - k + 1)
+    return torch.from_numpy(lut[np.frombuffer(draft[: n + k - 1], np.uint8)]).to(device)
+
+
+def prepare_pr5(tab, seq: str, thre: int, k: int, tile: int = LANES, divisor: int = 50):
+    """PR 5's DeviceScanner.prepare as it was (its scan_window_tiled
+    inlined), kept here only to time it against this checkout's: each tile
+    classified on the card and its counts, below and reldrop pulled, the
+    tile-boundary relative drop patched on the host with ``counts > 0`` for
+    validity (ROADMAP F7: wrong at threshold 0 only), validity and the
+    previous window's on the host -> (counts, valid, unsafe)."""
+    import torch
+
+    from jasper_tpu_torch.ops.codes import encode
+    from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+    from jasper_tpu_torch.table.probe import lookup_kmers, to_i32_bits
+
+    codes = encode(seq)
+    n = len(codes) - k + 1
+    counts = np.empty(n, np.uint32)
+    below = np.empty(n, bool)
+    rel = np.empty(n, bool)
+    codes_t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.uint8))
+    for pos in range(0, n, tile):
+        m = min(tile, n - pos)
+        chunk = codes_t[pos : pos + m + k - 1].to(tab.device)
+        keys, valid = canonical_windows_fast(chunk, k)
+        c = lookup_kmers(tab, to_i32_bits(keys), valid).to(torch.int64) & M32
+        b = valid & (c < thre)
+        i = torch.arange(m, dtype=torch.int64, device=c.device)
+        ceil_prev = (c[torch.clamp(i - k, min=0)] + (divisor - 1)) // divisor
+        r = valid & ~b & (i > 0) & (c < ceil_prev)
+        counts[pos : pos + m] = to_i32_bits(c).cpu().numpy().view(np.uint32)
+        below[pos : pos + m] = b.cpu().numpy()
+        rel[pos : pos + m] = r.cpu().numpy()
+    for t in range(tile, n, tile):
+        idxs = np.arange(t, min(t + k, n))
+        prev = counts[idxs - k].astype(np.uint64)
+        ceil_prev = prev // divisor + (prev % divisor != 0)
+        rel[idxs] = (counts[idxs] > 0) & ~below[idxs] & (counts[idxs] < ceil_prev)
+    cs = np.concatenate([[0], np.cumsum((codes > 3).astype(np.int32))])
+    valid = (cs[k : n + k] - cs[:n]) == 0
+    prev_ok = valid[np.maximum(np.arange(n) - k, 0)]
+    return counts, valid, (~valid) | below | rel | (~prev_ok)
+
+
+def scan_ab(tab, draft: bytes, k: int = 25, thre: int = 5) -> dict:
+    """The replicated pass's scan of the whole draft against ``tab`` at
+    the driver's threshold: this checkout's DeviceScanner.prepare (counts
+    and classification on the card) against PR 5's (prepare_pr5), in turns
+    (change, parent, parent, change) on the same card; seconds of each
+    turn. Gate: the same counts, valid and unsafe arrays."""
+    import torch
+
+    from jasper_tpu_torch.polish.device_engine import DeviceScanner
+
+    seq = draft.decode()
+    rep = DeviceScanner(tab, k)
+    secs = {"change": [], "parent": []}
+    arrays = {}
+    for who in ("change", "parent", "parent", "change"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if who == "change":
+            got = rep.prepare(seq, thre)
+            arrays[who] = (got.counts, got.valid, got.unsafe)
+        else:
+            arrays[who] = prepare_pr5(tab, seq, thre, k)
+        secs[who].append(time.perf_counter() - t0)
+    for name, a, b in zip(("counts", "valid", "unsafe"), arrays["change"], arrays["parent"]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"scan A/B: {name} of the change != PR 5's")
+    return {"windows": len(arrays["change"][0]), "seconds": secs}
 
 
 # -- phases 5-6: counting and the driver from reads --------------------------
@@ -551,11 +772,6 @@ def start_race_data(workdir: str, name: str, race_kb: int, seed: int):
     return wait
 
 
-def race_data(workdir: str, name: str, race_kb: int, seed: int):
-    """start_race_data, waited for."""
-    return start_race_data(workdir, name, race_kb, seed)()
-
-
 def oracle_counts(fastq: str, k: int):
     """Independent count: every canonical k-mer (packed, first base most
     significant) of every read, windows split at N and at read boundaries,
@@ -588,12 +804,13 @@ def oracle_windows(fastq: str, k: int):
     return fwd, rc, valid
 
 
-HEAD_READS = 160_000  # phases 5 and 9: the first 40 Mbp of the race reads
+HEAD_READS = 160_000  # phase 5: the first 40 Mbp of the race reads
+JF_HEAD_READS = 80_000  # phase 9's filtered routes: the first 20 Mbp
 
 
 def reads_head(reads: str, n_reads: int = HEAD_READS) -> str:
     """The first n_reads FASTQ records of ``reads``, written beside it once."""
-    head = os.path.join(os.path.dirname(reads), "reads_head.fq")
+    head = os.path.join(os.path.dirname(reads), f"reads_head{n_reads}.fq")
     if not os.path.exists(head):
         with open(reads, "rb") as src, open(head + ".part", "wb") as dst:
             for _ in range(4 * n_reads):
@@ -1082,7 +1299,281 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
     return rows
 
 
+# -- phases 10-12: the partitioned scan, the claim-round insert ---------------
+
+
+def phase_ranged_shape(host, draft: bytes, device, card: str, k: int = 25) -> dict:
+    """The ranged kernel at the partitioned path's shape, before phase 9's
+    child shares the card: one scan tile of draft windows against each of
+    the 4 slices of race20's table (``host``, pulled from the card), kernel
+    vs plain."""
+    from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+    from jasper_tpu_torch.table.probe import to_i32_bits
+
+    keys, valid = canonical_windows_fast(draft_tile(draft, device, k), k)
+    res = compare_ranged(host, to_i32_bits(keys), valid, device)
+    res["card"] = card
+    log("main-shape ranged probe " + json.dumps(res))
+    return res
+
+
+def phase_partitioned_driver(asm: str, jf: str, run_dir: str, genome: bytes,
+                             errors, device, card: str, table_bytes: int, gates: dict,
+                             k: int = 25) -> dict:
+    """Phase 10: the driver on -j with phase 6's .jf and a
+    JASPER_TPU_HBM_BUDGET that cuts race20's table into 4 slices: the
+    partitioned regime chosen before the histogram (read from the host
+    table), the batch's windows looked up slice by slice with the ranged
+    kernel. Gates: the polished FASTA and fixes.csv of phase 6 byte for
+    byte, its threshold and QV (``gates``), ranged launches and no
+    unranged one, 4 slices, and the run's peak device memory below the
+    whole table plus one scan tile's working set (what the replicated
+    regime needs). It runs beside phase 9's child: its seconds share the
+    card."""
+    import torch
+
+    from jasper_tpu_torch.parallel.scanner import SCAN_BYTES_PER_LANE, SCAN_TILE
+    from jasper_tpu_torch.pipeline import cli
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.layout import PAD_BUCKETS
+
+    budget = slices_budget(table_bytes // 256 - PAD_BUCKETS, 4)
+    wd = os.path.join(os.path.dirname(run_dir), "run_partitioned")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    probe.LAUNCHES = probe.RANGED_LAUNCHES = 0
+    os.environ["JASPER_TPU_HBM_BUDGET"] = str(budget)
+    t0 = time.perf_counter()
+    try:
+        res = cli.run(["-a", asm, "-j", jf, "-k", str(k), "-p", "2", "-t", "1",
+                       "-b", "25000000", "--workdir", wd, "--device", str(device)])
+    finally:
+        del os.environ["JASPER_TPU_HBM_BUDGET"]
+    wall = time.perf_counter() - t0
+    ranged, unranged = probe.RANGED_LAUNCHES, probe.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(device) - base
+    scanner = res["scanner"]
+    limit = table_bytes + SCAN_TILE * SCAN_BYTES_PER_LANE
+    with open(os.path.join(wd, "threshold.txt")) as f:
+        thr = int(f.read())
+    got = {"threshold": thr, "qv": [res["q_before"], res["q_after"]]}
+    for name in ("asm.fa.polished.fasta", "asm.fa.fixes.csv"):
+        with open(os.path.join(wd, name), "rb") as a, open(os.path.join(run_dir, name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"partitioned {name} != phase 6's")
+    for key, val in gates.items():
+        if key in got and got[key] != val:
+            raise AssertionError(f"partitioned {key}: {got[key]} != {val}")
+    if scanner.regime != "partitioned" or scanner.P != 4:
+        raise AssertionError(f"scanner {scanner.regime}, P={getattr(scanner, 'P', 1)}")
+    if ranged <= 0 or unranged:
+        raise AssertionError(f"{ranged} ranged and {unranged} unranged launches")
+    if peak >= limit:
+        raise AssertionError(f"partitioned run peaked at {peak} B, not below {limit} B")
+    out = {"budget": budget, "P": scanner.P, "part_rows": scanner.part_rows,
+           "slice_bytes": scanner.slice_bytes, "table_bytes": table_bytes,
+           "threshold": thr, "q_before": res["q_before"], "q_after": res["q_after"],
+           "gates": sorted(gates) or "not at this size",
+           "ranged_launches": ranged, "unranged_launches": unranged,
+           "pushes": scanner.pushes, "push_bytes": scanner.push_bytes,
+           "push_s": scanner.push_seconds,
+           "push_gb_per_s": scanner.push_bytes / scanner.push_seconds / 1e9,
+           "scan_s": scanner.seconds, "peak_device_bytes": peak,
+           "replicated_need_bytes": limit, "wall_s": wall,
+           "stage_seconds_since_previous": [
+               (m, t - (res["stages"][i - 1][0] if i else 0.0))
+               for i, (t, m) in enumerate(res["stages"])],
+           "repaired_share": repaired_share(genome, read_fasta_one(
+               os.path.join(wd, "asm.fa.polished.fasta")), errors), "card": card}
+    scanner.tab = None
+    del res, scanner
+    log("partitioned driver path " + json.dumps(out))
+    return out
+
+
+def _insert_batches(tab, keys, counts, batch: int, rng):
+    """insert_kmers of (keys, counts) in a seeded random order, ``batch``
+    records at a time -> (pending, placed, rounds per batch, seconds)."""
+    import torch
+
+    from jasper_tpu_torch.table.kmer_table import insert_kmers
+
+    perm = torch.from_numpy(rng.permutation(keys.shape[0])).to(keys.device)
+    pending = placed = 0
+    rounds = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, keys.shape[0], batch):
+        idx = perm[i : i + batch]
+        tab, n_pending, n_placed, r = insert_kmers(
+            tab, keys[idx], counts[idx], torch.ones(idx.shape[0], dtype=torch.bool,
+                                                    device=keys.device), with_rounds=True)
+        pending += n_pending
+        placed += n_placed
+        rounds.append(r)
+    torch.cuda.synchronize()
+    return pending, placed, rounds, time.perf_counter() - t0
+
+
+def _check_lookups(tab, keys, counts, what: str) -> None:
+    """Every record looks up to its count through K1."""
+    import torch
+
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.probe import to_i32_bits
+
+    for i in range(0, keys.shape[0], LANES):
+        kk = to_i32_bits(keys[i : i + LANES])
+        got = probe.lookup_kmers_cuda(tab, kk, torch.ones(kk.shape[0], dtype=torch.bool,
+                                                          device=kk.device))
+        if not torch.equal(got, to_i32_bits(counts[i : i + LANES])):
+            raise AssertionError(f"{what}: a record does not look up to its count")
+
+
+def phase_insert(host, rng, device, card: str, records_gate: int | None,
+                 batch: int = 1 << 22) -> dict:
+    """Phase 11: the claim-round insert (K8, torch ops) of race20's records
+    (phase 6's table, pulled from the card) in 4 M-record batches, in a seeded random
+    order, into an empty table of K5's shape; gates: nothing pending, every
+    record placed, every record looks up to its count through K1. Timed
+    against build_from_run (K5) of the same records, whose table must equal
+    the host one. Then the same at phase 3's k=37 shape (16 M records at
+    the fast load)."""
+    import torch
+
+    from jasper_tpu_torch.ops.hashing import mix32
+    from jasper_tpu_torch.table import build
+    from jasper_tpu_torch.table.kmer_table import empty_table, table_from_numpy
+    from jasper_tpu_torch.table.layout import FAST_LOAD, slots_for
+
+    keys_np, counts_np = host.items()  # table order = the run's (h, key) order
+    N = len(keys_np)
+    if records_gate is not None and N != records_gate:
+        raise AssertionError(f"{N} records != {records_gate}")
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device) \
+            .to(torch.int64) & M32
+
+    keys, counts = to_dev(keys_np), to_dev(counts_np)
+    h = mix32(keys)
+    s = _event()
+    tab5, failed = build.build_from_run(h, keys, counts, host.n_buckets)
+    e = _event()
+    torch.cuda.synchronize()
+    if failed or not torch.equal(tab5, table_from_numpy(host.tab, device)):
+        raise AssertionError("build_from_run of the records != the host table")
+    out = {"records": N, "batch": batch, "build_from_run_ms": s.elapsed_time(e),
+           "table_bytes": int(host.tab.nbytes)}
+    del tab5, h
+    tab = torch.zeros(host.tab.shape, dtype=torch.int32, device=device)
+    pending, placed, rounds, secs = _insert_batches(tab, keys, counts, batch, rng)
+    if pending or placed != N:
+        raise AssertionError(f"insert: {pending} pending, {placed} placed of {N}")
+    _check_lookups(tab, keys, counts, "race20 insert")
+    out.update(insert_s=secs, rounds_per_batch=rounds,
+               insert_records_per_s=N / secs)
+    del tab, keys, counts
+    torch.cuda.empty_cache()
+
+    n37 = 16_000_000
+    keys37 = to_dev(distinct_keys(rng, 37, n37, salt=37))
+    counts37 = to_dev(rng.integers(1, 1 << 16, size=n37).astype(np.uint32))
+    tab = empty_table(37, slots_for(n37, FAST_LOAD), device)
+    pending, placed, rounds, secs = _insert_batches(tab, keys37, counts37, batch, rng)
+    if pending or placed != n37:
+        raise AssertionError(f"k=37 insert: {pending} pending, {placed} placed of {n37}")
+    _check_lookups(tab, keys37, counts37, "k=37 insert")
+    out["k37"] = {"records": n37, "table_bytes": int(tab.numel() * 4), "insert_s": secs,
+                  "rounds_per_batch": rounds, "insert_records_per_s": n37 / secs}
+    out["card"] = card
+    del tab, keys37, counts37
+    torch.cuda.empty_cache()
+    log("insert " + json.dumps(out))
+    return out
+
+
+def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25) -> dict:
+    """Phase 12: race100's table (phase 8's, pulled to the host once) and
+    draft through the partitioned scanner forced to 4 slices, its counts,
+    valid and unsafe arrays equal to the replicated scanner's bit for bit.
+    Reports the push seconds and rate, the scan seconds against the
+    replicated scan's and the peak device memory above what was allocated
+    before it."""
+    import torch
+
+    from jasper_tpu_torch.parallel.scanner import PartitionedDeviceScanner
+    from jasper_tpu_torch.polish.device_engine import DeviceScanner
+    from jasper_tpu_torch.table.host_table import HostKmerTable
+    from jasper_tpu_torch.table.kmer_table import table_to_numpy
+
+    t0 = time.perf_counter()
+    host = HostKmerTable(k, table_to_numpy(scanner.tab))
+    pull_s = time.perf_counter() - t0
+    seqs = {"draft": draft.decode()}
+    rep = DeviceScanner(scanner.tab, k)
+    want = rep.prepare_all(seqs, 5)["draft"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    part = PartitionedDeviceScanner(host, k, slices_budget(host.n_buckets, 4), device)
+    got = part.prepare_all(seqs, 5)["draft"]
+    peak = torch.cuda.max_memory_allocated(device) - base
+    if part.P != 4:
+        raise AssertionError(f"race100 partitioned: P={part.P}")
+    for a in ("counts", "valid", "unsafe"):
+        if not np.array_equal(getattr(got, a), getattr(want, a)):
+            raise AssertionError(f"race100 partitioned {a} != replicated")
+    out = {"P": part.P, "windows": int(got.n), "table_bytes": int(host.tab.nbytes),
+           "slice_bytes": part.slice_bytes, "table_pull_s": pull_s,
+           "pushes": part.pushes, "push_bytes": part.push_bytes, "push_s": part.push_seconds,
+           "push_gb_per_s": part.push_bytes / part.push_seconds / 1e9,
+           "partitioned_s": part.seconds,
+           "partitioned_scan_s": part.seconds - part.push_seconds,
+           "replicated_s": rep.seconds, "peak_device_bytes_above_base": peak,
+           "card": card}
+    part.tab = None
+    log("race100 partitioned " + json.dumps(out))
+    return out
+
+
 # -- phase 9: the jellyfish entry point --------------------------------------
+
+
+JELLYFISH = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from jasper_tpu_torch.utils.device import resolve_device
+out = chip_smoke.phase_jellyfish(sys.argv[2], sys.argv[3], resolve_device("cuda"),
+                                 sys.argv[4], int(sys.argv[5]) if sys.argv[5] else None)
+leaked = sorted(m for m in sys.modules if m == "jasper_tpu" or m.startswith("jasper_tpu."))
+if leaked:
+    raise AssertionError(f"modules of the JAX package were loaded: {leaked}")
+with open(sys.argv[6], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_jellyfish(reads: str, driver_jf: str, card: str, records_gate):
+    """Start phase 9 in a child process on the same card (its routes are
+    host-bound, so it runs beside the phases that follow it); returns a
+    function that waits for it and gives its report. The function's
+    ``proc`` is the child, for the caller to stop on failure."""
+    out = os.path.join(os.path.dirname(reads), "jellyfish.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", JELLYFISH, HERE, reads, driver_jf, card,
+         "" if records_gate is None else str(records_gate), out])
+
+    def wait():
+        if proc.wait():
+            raise RuntimeError(f"phase 9 exited with {proc.returncode}")
+        with open(out) as f:
+            return json.load(f)
+
+    wait.proc = proc
+    return wait
 
 
 def _packed(keys: np.ndarray) -> np.ndarray:
@@ -1121,7 +1612,7 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
                     records_gate: int | None, k: int = 25) -> dict:
     """Phase 9: bin/jellyfish-tpu-torch, the jellyfish-compatible entry point.
     count -C on the whole race reads through jf_cli.main in this process,
-    held to the .jf phase 6's driver wrote; on the first 40 Mbp of reads the
+    held to the .jf phase 6's driver wrote; on the first 20 Mbp of reads the
     forward count against a forward numpy oracle, --disk (dumps at the -s
     floor) and --if (race20's .jf) against the canonical oracle, bc then
     count --bc against the oracle's k-mers seen twice; then stats and histo
@@ -1168,7 +1659,7 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
            "probe_launches": probe.LAUNCHES}
 
     # 2. the forward, --disk, --if and bloom-filtered routes on the head
-    head = reads_head(reads)
+    head = reads_head(reads, JF_HEAD_READS)
     hsize = str(os.path.getsize(head) // 10)
     t0 = time.perf_counter()
     fw, rc, valid = oracle_windows(head, k)
@@ -1250,16 +1741,23 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9",
-                    help="phases to run after 1-2, comma-separated (7 and 9 need 6)")
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12",
+                    help="phases to run after 1-2, comma-separated (7, 9, 10 and "
+                         "11 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--ab-probe", default=None, metavar="FILE",
+                    help="another version of csrc/probe.cu: its unranged kernel is "
+                         "timed against this checkout's in turns at every probe "
+                         "comparison (ab_ms in the probe rows)")
     ap.add_argument("--workdir", default=None,
                     help="scratch for db.jf/asm.fa/outputs (default "
                          ".smoke_work/ in the checkout; removed at the end)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if phases & {7, 9} and 6 not in phases:
-        ap.error("phases 7 and 9 hold their results against phase 6's")
+    if phases & {7, 9, 10, 11} and 6 not in phases:
+        ap.error("phases 7, 9, 10 and 11 hold their results against phase 6's")
+    if 12 in phases and 8 not in phases:
+        ap.error("phase 12 scans phase 8's table")
     if not phases & {6, 8}:
         ap.error("the kernels line needs a driver path: phase 6 or 8")
 
@@ -1287,19 +1785,29 @@ def main(argv=None) -> int:
     for line in _build.build_log.splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log("ptxas " + line.strip())
+    if args.ab_probe:
+        global AB_PROBE
+        AB_PROBE = other_probe(args.ab_probe)
 
     workdir = args.workdir or os.path.join(HERE, ".smoke_work")
     os.makedirs(workdir, exist_ok=True)
-    # race100's data (~280 s of host work on one core) is made while phases
-    # 3-7 run. Its files are on disk beside race20's until phase 8, which
-    # deletes race20's first: no more disk than phase 8's own run takes.
+    # race20's data (~75 s of host work on one core) is made while phases
+    # 3-4 run, race100's (~280 s) while phases 3-7 run. race100's files are
+    # on disk beside race20's until phase 8, which deletes race20's first:
+    # no more disk than phase 8's own run takes.
+    children: list = []  # every process started here, stopped on the way out
+    race = start_race_data(workdir, "race", args.race_kb, args.seed) \
+        if phases & {5, 6} else None
     big = start_race_data(workdir, "race100", args.big_kb, args.seed) if 8 in phases else None
+    children += [w.proc for w in (race, big) if w is not None]
     try:
-        drivers, shapes, probe_rows = run_phases(args, phases, device, card, workdir, big)
+        drivers, shapes, probe_rows, ranged = run_phases(args, phases, device, card,
+                                                         workdir, race, big, children)
     finally:
-        if big is not None and big.proc.poll() is None:
-            big.proc.kill()
-            big.proc.wait()
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if not args.workdir:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1318,6 +1826,22 @@ def main(argv=None) -> int:
         "library_ms": None,  # no single PyTorch call computes a bucket probe
         "design": PROBE_DESIGN,
     }]}
+    if ranged["rows"]:
+        main = ranged["rows"][-1]  # the driver path's shape where it ran
+        kernels["kernels"].append({
+            "name": "bucket_probe_ranged",
+            "route": "cuda",
+            "source": "jasper_tpu_torch/csrc/probe.cu",
+            "replaces": "jasper_tpu/table/kmer_table.py:302",
+            "launches": ranged["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in ranged["rows"]),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a ranged probe
+            "design": RANGED_DESIGN,
+        })
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
         f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
@@ -1334,19 +1858,25 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_phases(args, phases, device, card: str, workdir: str, big):
-    """Phases 3-9; ``big`` waits for race100's data. Returns the driver
-    paths' reports, the main-shape probe rows and phase 3's rows."""
+def run_phases(args, phases, device, card: str, workdir: str, race, big, children):
+    """Phases 3-12; ``race`` and ``big`` wait for race20's and race100's
+    data. Phase 9 runs in a child process beside phases 7 and 10 (its
+    routes are host-bound); it is appended to ``children``. Phase 11 and
+    the ranged kernel at the main path's shape run before it starts.
+    Returns the driver paths' reports, the main-shape probe rows, phase 3's
+    rows and the ranged kernel's comparisons (phase 3's, then the one at
+    the main path's shape) with phase 10's ranged launches."""
     import torch
 
     rng = np.random.default_rng(args.seed)
     probe_rows = phase_probe(rng, device, card) if 3 in phases else []
+    ranged = {"rows": [r["ranged"] for r in probe_rows if "ranged" in r], "launches": 0}
     if 4 in phases:
         phase_runner(args, rng, device, workdir)
         torch.cuda.empty_cache()
     drivers, shapes = [], []
-    if phases & {5, 6}:
-        asm, reads, genome, errors = race_data(workdir, "race", args.race_kb, args.seed)
+    if race is not None:
+        asm, reads, genome, errors = race()
         if 5 in phases:
             phase_count(reads, device, card)
         if 6 in phases:
@@ -1355,9 +1885,29 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                 "records": RACE_RECORDS, "threshold": 5, "qv": list(RACE_QV)}
                 if full else {})
             drivers.append(drv)
-            scanner = drv.pop("_scanner")
-            shapes.append(phase_main_shape(scanner, drv.pop("_draft"), device,
+            scanner, draft = drv.pop("_scanner"), drv.pop("_draft")
+            shapes.append(phase_main_shape(scanner, draft, device,
                                            drv["probe_launches"], card))
+            run_dir = os.path.join(os.path.dirname(reads), "run")
+            jf = os.path.join(run_dir, "mer_counts25.jf")
+            # the ranged kernel's main-shape times and the insert's are taken
+            # before phase 9's child shares the card, on race20's table
+            # pulled from it (equal to the host-built one: phase 6's gate)
+            host = None
+            if phases & {10, 11}:
+                from jasper_tpu_torch.table.host_table import HostKmerTable
+                from jasper_tpu_torch.table.kmer_table import table_to_numpy
+
+                host = HostKmerTable(25, table_to_numpy(scanner.tab))
+            if 10 in phases:
+                ranged["rows"].append(phase_ranged_shape(host, draft, device, card))
+            if 11 in phases:
+                phase_insert(host, rng, device, card, RACE_RECORDS if full else None)
+            del host
+            jelly = None
+            if 9 in phases:
+                jelly = start_jellyfish(reads, jf, card, RACE_RECORDS if full else None)
+                children.append(jelly.proc)
             if 7 in phases:
                 peak_resident = max(r for _n, r, _b, _x in
                                     drv["count_peak_memory"]["per_step"])
@@ -1365,10 +1915,15 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                                device, card)
             del scanner
             torch.cuda.empty_cache()
-            if 9 in phases:
-                phase_jellyfish(reads, os.path.join(os.path.dirname(reads), "run",
-                                                    "mer_counts25.jf"),
-                                device, card, RACE_RECORDS if full else None)
+            if 10 in phases:
+                part = phase_partitioned_driver(
+                    asm, jf, run_dir, genome, errors, device, card,
+                    drv["table_bytes"],
+                    {"threshold": 5, "qv": list(RACE_QV)} if full else {})
+                ranged["launches"] = part["ranged_launches"]
+                torch.cuda.empty_cache()
+            if jelly is not None:
+                jelly()
         shutil.rmtree(os.path.dirname(reads))  # race20's files go before race100's run
         torch.cuda.empty_cache()
     if big is not None:
@@ -1381,9 +1936,11 @@ def run_phases(args, phases, device, card: str, workdir: str, big):
                          histogram=read_histogram(os.path.join(HERE, BIG_HISTO)))
         drv = phase_driver(asm, reads, genome, errors, device, card, gates)
         drivers.append(drv)
-        shapes.append(phase_main_shape(drv.pop("_scanner"), drv.pop("_draft"), device,
-                                       drv["probe_launches"], card))
-    return drivers, shapes, probe_rows
+        scanner, draft = drv.pop("_scanner"), drv.pop("_draft")
+        shapes.append(phase_main_shape(scanner, draft, device, drv["probe_launches"], card))
+        if 12 in phases:
+            phase_partitioned_big(scanner, draft, device, card)
+    return drivers, shapes, probe_rows, ranged
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@ jasper_tpu/count/histogram.py:25-80, which imports jax at load).
 
 ``histogram_rows_from_counts``, ``write_histogram``, ``read_histogram`` and
 ``threshold_from_histogram`` are copies; ``histogram_rows`` reads a torch
-table (kernel K7, jasper_tpu/table/kmer_table.py:376 ``table_histogram``).
+table (kernel K7, jasper_tpu/table/kmer_table.py:376 ``table_histogram``),
+``histogram_rows_host`` the same column block of a host table.
 Rows are what `jellyfish histo` prints: nonzero (bin, frequency) with
 low=1, high=10000, inc=1 and every count above high in bin 10001.
 """
@@ -32,6 +33,15 @@ def histogram_rows(tab: torch.Tensor, k: int, high: int = HISTO_HIGH
     hist = torch.bincount(torch.clamp(counts, max=high + 1),
                           minlength=high + 2).cpu().numpy()
     return [(c, int(hist[c])) for c in range(1, high + 2) if hist[c] > 0]
+
+
+def histogram_rows_host(tab: np.ndarray, k: int, high: int = HISTO_HIGH
+                        ) -> list[tuple[int, int]]:
+    """histogram_rows of a host table (uint32 [R, 64], HostKmerTable.tab):
+    the same rows from its counts column block, with nothing uploaded."""
+    W = words_per_kmer(k)
+    S = ROW_U32 // slot_words_for(W)
+    return histogram_rows_from_counts(tab[:, W * S : (W + 1) * S], high)
 
 
 def histogram_rows_from_counts(counts, high: int = HISTO_HIGH) -> list[tuple[int, int]]:

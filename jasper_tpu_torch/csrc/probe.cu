@@ -51,6 +51,19 @@
 //     load most lanes settle at offset 0.
 // Rows are fetched with .cg (L2 only): a row is read once per probe, and
 // caching it in L1 would only evict the other warps' rows.
+//
+// Ranged mode (kRanged, entry jt_probe_lookup_ranged) also replaces the
+// ranged lookup jasper_tpu left to XLA (kmer_table.lookup_kmers with
+// n_buckets_global and home_base, kmer_table.py:302-321), which its
+// bucket-range partitioned scanner runs once per table slice. `tab` is then
+// the slice holding buckets [b0, b0 + n_buckets) of a table with n_global
+// buckets, plus the next PAD_BUCKETS rows. A lane's home is
+// mulhi(h, n_global); a lane whose home lies outside the slice's range
+// reads 0 and fetches no row, the others probe at home - b0 with the row
+// clamped to the slice's last row. The same code path with the range
+// compare compiled in: the unranged instantiation is unchanged. Its bound
+// is the keys, flags and counts of every lane plus the rows of the
+// in-range lanes, so with P slices about 1/P of a warp's lanes fetch rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -97,13 +110,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int W>
+template <int W, bool kRanged>
 __global__ void __launch_bounds__(kWarps * 32)
     probe_chain_kernel(const uint32_t* __restrict__ tab,
                        const uint32_t* __restrict__ keys,
                        const uint8_t* __restrict__ valid,
                        uint32_t* __restrict__ out, int64_t B,
-                       uint32_t n_buckets, int S) {
+                       uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+                       int S) {
   __shared__ __align__(16) uint32_t rows[kWarps][32][kRowU32];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -117,7 +131,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int j = 0; j < W; ++j) kw[j] = in ? __ldg(keys + lane * W + j) : 0u;
   bool pending = in && __ldg(valid + lane) != 0;
   const uint32_t h = mix32<W>(kw);
-  const uint32_t home = n_buckets <= 1 ? 0u : __umulhi(h, n_buckets);
+  uint32_t home;
+  if constexpr (kRanged) {
+    // n_buckets is the slice's; the home is taken over the whole table
+    const uint32_t hg = n_global <= 1 ? 0u : __umulhi(h, n_global);
+    const bool in_range = hg >= b0 && hg - b0 < n_buckets;
+    pending = pending && in_range;
+    home = in_range ? hg - b0 : 0u;
+  } else {
+    home = n_buckets <= 1 ? 0u : __umulhi(h, n_buckets);
+  }
   const uint64_t last = static_cast<uint64_t>(n_buckets) + kPadBuckets - 1;
 
   uint32_t(*buf)[kRowU32] = rows[w];  // row buffer r holds lane r's row
@@ -170,25 +193,51 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (in) out[lane] = result;
 }
 
-template <int W>
+template <int W, bool kRanged>
 cudaError_t launch(const uint32_t* tab, const uint32_t* keys,
                    const uint8_t* valid, uint32_t* out, int64_t B,
-                   uint32_t n_buckets, int S, cudaStream_t stream) {
+                   uint32_t n_buckets, uint32_t n_global, uint32_t b0, int S,
+                   cudaStream_t stream) {
   // shared memory before L1: the rows bypass L1, and more resident blocks
   // keep more rows in flight
   static bool carved = false;
   if (!carved) {
     const cudaError_t err = cudaFuncSetAttribute(
-        probe_chain_kernel<W>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        probe_chain_kernel<W, kRanged>,
+        cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     carved = true;
   }
   constexpr int64_t kLanesPerBlock = kWarps * 32;
   const int64_t blocks = (B + kLanesPerBlock - 1) / kLanesPerBlock;
-  probe_chain_kernel<W><<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
-      tab, keys, valid, out, B, n_buckets, S);
+  probe_chain_kernel<W, kRanged>
+      <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
+          tab, keys, valid, out, B, n_buckets, n_global, b0, S);
   return cudaGetLastError();
+}
+
+template <bool kRanged>
+int dispatch(const void* tab, const void* keys, const void* valid, void* out,
+             int64_t B, uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+             int W, int S, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B <= 0) return 0;
+  if (S < 1 || S > 32) return static_cast<int>(cudaErrorInvalidValue);
+  auto* t = static_cast<const uint32_t*>(tab);
+  auto* k = static_cast<const uint32_t*>(keys);
+  auto* v = static_cast<const uint8_t*>(valid);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (W) {
+    case 1: err = launch<1, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
+    case 2: err = launch<2, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
+    case 3: err = launch<3, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
+    case 4: err = launch<4, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -201,23 +250,18 @@ extern "C" {
 int jt_probe_lookup(const void* tab, const void* keys, const void* valid,
                     void* out, int64_t B, uint32_t n_buckets, int W, int S,
                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B <= 0) return 0;
-  if (S < 1 || S > 32) return static_cast<int>(cudaErrorInvalidValue);
-  auto* t = static_cast<const uint32_t*>(tab);
-  auto* k = static_cast<const uint32_t*>(keys);
-  auto* v = static_cast<const uint8_t*>(valid);
-  auto* o = static_cast<uint32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 1: err = launch<1>(t, k, v, o, B, n_buckets, S, st); break;
-    case 2: err = launch<2>(t, k, v, o, B, n_buckets, S, st); break;
-    case 3: err = launch<3>(t, k, v, o, B, n_buckets, S, st); break;
-    case 4: err = launch<4>(t, k, v, o, B, n_buckets, S, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return dispatch<false>(tab, keys, valid, out, B, n_buckets, 0u, 0u, W, S,
+                         device, stream);
+}
+
+// The ranged lookup: `tab` holds buckets [b0, b0 + n_buckets) of a table
+// of n_global buckets, plus the next PAD_BUCKETS rows.
+int jt_probe_lookup_ranged(const void* tab, const void* keys,
+                           const void* valid, void* out, int64_t B,
+                           uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+                           int W, int S, int device, void* stream) {
+  return dispatch<true>(tab, keys, valid, out, B, n_buckets, n_global, b0, W,
+                        S, device, stream);
 }
 
 const char* jt_cuda_error_string(int err) {

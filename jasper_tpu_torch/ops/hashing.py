@@ -58,14 +58,18 @@ def mix32(words: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def home_of(h: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Home bucket ``(h * n_buckets) >> 32`` (owner_bits = 0). In int64 the
-    product of a uint32 and an n_buckets < 2^31 stays below 2^63, so the
-    16-bit split jasper_tpu needs under jax's x64-off mode is not needed."""
+def home_of(h: torch.Tensor, n_buckets: int, owner_bits: int = 0) -> torch.Tensor:
+    """Home bucket ``((h << owner_bits) mod 2^32 * n_buckets) >> 32``: the
+    hash after the ``owner_bits`` shard-owner bits, range-mapped onto
+    [0, n_buckets). In int64 the product of a uint32 and an n_buckets <
+    2^31 stays below 2^63, so the 16-bit split jasper_tpu needs under jax's
+    x64-off mode is not needed."""
     if n_buckets <= 1:
         return torch.zeros_like(h)
     if n_buckets >= 1 << 31:
         raise ValueError(f"n_buckets {n_buckets} >= 2^31")
+    if owner_bits:
+        h = (h << owner_bits) & M32
     return (h * int(n_buckets)) >> 32
 
 
@@ -100,8 +104,8 @@ def hash_words_np(words: np.ndarray) -> np.ndarray:
     return h
 
 
-def home_of_int(h: int, n_buckets: int) -> int:
+def home_of_int(h: int, n_buckets: int, owner_bits: int = 0) -> int:
     """Scalar twin of home_of (the host table's scalar probe)."""
     if n_buckets <= 1:
         return 0
-    return ((h & M32) * n_buckets) >> 32
+    return (((h << owner_bits) & M32) * n_buckets) >> 32

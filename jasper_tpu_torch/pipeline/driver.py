@@ -20,9 +20,12 @@ histogram (count/histogram.py), the scanner and the device polish engine. One pr
 drives one device; jasper_tpu's multi-host barriers and batch sharding
 collapse to process 0 of 1 (the multi-GPU port is ROADMAP queue 1 item 12).
 
-Deliberate difference: on the `-j` path the histogram is read from the
-table's counts column block (K7), not with jasper_tpu's `_host_histogram`,
-which reads slot-interleaved columns of word-major rows (ROADMAP F1).
+The scanner's regime (replicated or partitioned, parallel/scanner.py) is
+chosen before the histogram. On the `-j` path the histogram is read from the
+table's counts column block: on the device (K7) when the table is
+replicated, on the host table when it is partitioned, which then uploads
+nothing whole. Deliberate difference: jasper_tpu's `_host_histogram` reads
+slot-interleaved columns of word-major rows (ROADMAP F1).
 """
 
 from __future__ import annotations
@@ -42,13 +45,14 @@ from jasper_tpu_torch.count.counter import count_reads_to_host
 from jasper_tpu_torch.count.histogram import (
     histogram_rows,
     histogram_rows_from_counts,
+    histogram_rows_host,
     read_histogram,
     threshold_from_histogram,
     write_histogram,
 )
 from jasper_tpu_torch.io.fastx import _open_text, read_fasta, total_file_bytes
 from jasper_tpu_torch.io.jf import load_jf_into_host_table, write_jf
-from jasper_tpu_torch.parallel.scanner import select_scanner
+from jasper_tpu_torch.parallel.scanner import describe, plan_scan, select_scanner
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
 from jasper_tpu_torch.polish.engine import CountSource
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
@@ -362,8 +366,9 @@ def run_pipeline(
     no fallback). Returns jasper_tpu's result (polished, fixes, q_before,
     q_after, db, batch_size) plus what the run drove: ``counts`` (the
     CountSource) and ``scanner`` of the in-process polish stage (None when
-    it was skipped or ran in worker processes), ``scan_table_from_count``
-    (the scanner took the table the count built on the device) and
+    it was skipped or ran in worker processes; its ``regime`` is
+    replicated or partitioned), ``scan_table_from_count`` (the replicated
+    scanner took the table the count built on the device) and
     ``stages``, the (seconds, message) of every `[stage ...]` line.
 
     threads shapes the batch size as in the reference (sh:127-139); with
@@ -476,12 +481,21 @@ def run_pipeline(
             )
 
     from_count = dev_tab is not None
+    # the scan regime, from the budget, before anything more is allocated;
+    # a partitioned scan streams the host table and needs no device copy
+    plan = plan_scan(host_table, device, dev_tab)
+    if plan.regime == "partitioned":
+        dev_tab = None
     if (not os.path.exists(_marker(workdir, "histo"))
             or not (os.path.exists(histo_csv) and os.path.getsize(histo_csv) > 0)):
         log("Computing K-mer histogram")
-        if dev_tab is None:  # uploaded once: the scanner below takes it too
-            dev_tab = table_from_numpy(host_table.tab, device)
-        write_histogram(histo_csv, histogram_rows(dev_tab, k))
+        if plan.regime == "partitioned":
+            rows = histogram_rows_host(host_table.tab, k)
+        else:
+            if dev_tab is None:  # uploaded once: the scanner below takes it too
+                dev_tab = table_from_numpy(host_table.tab, device)
+            rows = histogram_rows(dev_tab, k)
+        write_histogram(histo_csv, rows)
         _rm(_marker(workdir, "correct"))
         _touch(_marker(workdir, "histo"))
 
@@ -505,10 +519,11 @@ def run_pipeline(
             )
         else:
             counts = CountSource(host_table)
-            scanner = select_scanner(host_table, k, device, device_tab=dev_tab)
-            log(f"Scanner: {type(scanner).__name__} (table "
-                + ("built on the device by the count)" if from_count
-                   else "uploaded from the host)"))
+            scanner = select_scanner(host_table, k, device, device_tab=dev_tab,
+                                     plan=plan)
+            dev_tab = None  # the scanner holds what it needs
+            log("Scanner: " + describe(scanner, "built on the device by the count"
+                                       if from_count else "uploaded from the host"))
 
             def engine_cls(c, kk, t):
                 return DevicePolishEngine(c, kk, t, scanner=scanner)
@@ -582,6 +597,7 @@ def run_pipeline(
         "batch_size": batch_size,
         "counts": counts,
         "scanner": scanner,
-        "scan_table_from_count": scanner is not None and from_count,
+        "scan_table_from_count": (scanner is not None and from_count
+                                  and scanner.regime == "replicated"),
         "stages": stages,
     }

@@ -2,8 +2,9 @@
 jasper_tpu/polish/device_engine.py:32-211, which imports jax at load).
 
 Every window count of a contig comes from the device scan
-(polish.window.scan_window_tiled: canonical extraction + the CUDA bucket
-probe + threshold classification); the host runs the exact reference
+(polish.window.scan_counts_tiled: canonical extraction + the CUDA bucket
+probe) and is classified on the device (polish.window.classify_tiled, the
+classification both scanners share); the host runs the exact reference
 control flow only at the positions the scan flagged. The host walk is the
 port's copy of jasper_tpu's, polish/engine.py's PolishEngine; the
 byte-exactness argument is jasper_tpu's (a valid, solid, non-dropping window
@@ -16,6 +17,7 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from jasper_tpu_torch.ops.codes import encode
 from jasper_tpu_torch.polish.engine import (
@@ -24,7 +26,7 @@ from jasper_tpu_torch.polish.engine import (
     PolishEngine,
     _all_acgt,
 )
-from jasper_tpu_torch.polish.window import scan_window_tiled
+from jasper_tpu_torch.polish.window import classify_tiled, scan_counts_tiled
 
 
 class ContigScan:
@@ -56,9 +58,12 @@ class ContigScan:
 
 
 class DeviceScanner:
-    """Runs the device scan of one contig and packages the flag arrays.
-    ``tab`` is the table tensor on its device (no mesh: one device).
-    ``seconds`` accumulates the wall time of prepare()."""
+    """Runs the device scan of one contig against the whole table on one
+    device (the replicated regime) and packages the flag arrays. ``tab``
+    is the table tensor on its device. ``seconds`` accumulates the wall
+    time of prepare()."""
+
+    regime = "replicated"
 
     def __init__(self, tab, k: int, divisor: int = 50, tile: int = 1 << 22):
         self.tab = tab
@@ -69,28 +74,17 @@ class DeviceScanner:
 
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:
         t0 = time.perf_counter()
-        k = self.k
-        codes = encode(seq)
-        counts, below, rel = scan_window_tiled(
-            self.tab, codes, solid_thre, k, tile=self.tile,
-            divisor=self.divisor,
-        )
-        n = len(counts)
-        if n == 0:
-            z = np.zeros(0, bool)
-            self.seconds += time.perf_counter() - t0
-            return ContigScan(counts, z, z)
-        # window validity: no non-ACGT code inside [i, i+k)
-        bad = (codes > 3).astype(np.int32)
-        cs = np.concatenate([[0], np.cumsum(bad)])
-        valid = (cs[k : n + k] - cs[:n]) == 0
-        # previous-window validity (the relative-drop reference count uses
-        # jellyfish effective-key semantics for windows containing invalid
-        # bases, j.py:80; those positions must run on host)
-        prev_ok = valid[np.maximum(np.arange(n) - k, 0)]
-        unsafe = (~valid) | below | rel | (~prev_ok)
+        codes = torch.from_numpy(np.ascontiguousarray(encode(seq), dtype=np.uint8))
+        codes = codes.to(self.tab.device)
+        counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
+        scan = ContigScan(*classify_tiled(codes, counts, solid_thre, self.k, self.tile,
+                                          self.divisor))
         self.seconds += time.perf_counter() - t0
-        return ContigScan(counts, valid, unsafe)
+        return scan
+
+    def prepare_all(self, seqs: dict[str, str], solid_thre: int) -> dict[str, ContigScan]:
+        """Every contig of a batch (the scanners' common batch entry)."""
+        return {name: self.prepare(seq, solid_thre) for name, seq in seqs.items()}
 
 
 class DevicePolishEngine(PolishEngine):
@@ -100,10 +94,11 @@ class DevicePolishEngine(PolishEngine):
     spent in the device scan, and its fix count."""
 
     def __init__(self, counts: CountSource, k: int, solid_threshold: int,
-                 divisor: int = 50, scanner: DeviceScanner | None = None):
+                 divisor: int = 50, scanner=None):
         super().__init__(counts, k, solid_threshold, divisor)
         if scanner is None:
-            raise ValueError("DevicePolishEngine needs a DeviceScanner")
+            raise ValueError("DevicePolishEngine needs a scanner (DeviceScanner "
+                             "or PartitionedDeviceScanner)")
         self.scanner = scanner
         self.passes: list[dict] = []
 
@@ -115,9 +110,12 @@ class DevicePolishEngine(PolishEngine):
         total_kmers = 0
         fixes = []
         out = dict(seqs)
+        # the whole batch's pass-start arrays at once: the partitioned
+        # scanner pushes each table slice once per pass, not once per contig
+        scans = self.scanner.prepare_all(out, self.solid_thre)
         for name, seq in out.items():
             total_kmers += len(seq) - k + 1  # j.py:51
-            arrays = self.scanner.prepare(seq, self.solid_thre)
+            arrays = scans.pop(name)
             orig_len = len(seq)
             clean_from = 0  # first current-coord position allowed to map
             i = 0

@@ -27,7 +27,7 @@ import torch
 
 from jasper_tpu_torch.io.fastx import read_fasta
 from jasper_tpu_torch.io.jf import load_jf_into_host_table
-from jasper_tpu_torch.parallel.scanner import select_scanner
+from jasper_tpu_torch.parallel.scanner import describe, select_scanner
 from jasper_tpu_torch.pipeline.driver import qv_from_tallies, read_qv_helper
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
 from jasper_tpu_torch.polish.engine import CountSource, PolishEngine
@@ -161,12 +161,14 @@ def run(argv=None) -> PolishReport:
     counts = CountSource(host_table)
 
     t0 = time.perf_counter()
+    # the driver's policy: replicated when the table fits the budget (one
+    # upload here), else partitioned (slices pushed per pass, none here)
     scanner = select_scanner(host_table, k, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     upload_s = time.perf_counter() - t0
-    print(f"[stage] table upload {upload_s:.1f}s "
-          f"({host_table.tab.nbytes} B to {device})", flush=True)
+    print(f"[stage] scanner {describe(scanner)} on {device}, set up in "
+          f"{upload_s:.1f}s", flush=True)
 
     engines = []
 

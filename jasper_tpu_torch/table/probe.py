@@ -3,8 +3,11 @@ twins, and the dispatcher (counterpart of jasper_tpu/table/pallas_probe.py).
 
 ``lookup_kmers(tab, keys, valid)`` gives exactly jasper_tpu's
 ``kmer_table.lookup_kmers``: the count of each lane's key, 0 for absent keys
-and invalid lanes. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel, or raises — there is no fallback.
+and invalid lanes. With ``n_buckets_global`` and ``home_base`` it is the
+ranged lookup (kmer_table.py:302-321): ``tab`` is then a bucket-range slice
+of a larger table and lanes whose home lies outside it read 0. A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel, or raises —
+there is no fallback.
 
 Tensors carry uint32 values as int32 bit patterns (table/kmer_table.py):
 ``tab`` int32 [n_buckets + PAD_BUCKETS, 64], ``keys`` int32 [B, W],
@@ -19,8 +22,10 @@ import torch
 from jasper_tpu_torch.ops.hashing import M32, home_of, mix32
 from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32, slot_words_for
 
-# kernel launches since the last reset (the main-path proof in chip_smoke.py)
+# kernel launches since the last reset (the main-path proof in
+# chip_smoke.py): unranged, and ranged (a table slice)
 LAUNCHES = 0
+RANGED_LAUNCHES = 0
 
 
 def _layout(tab: torch.Tensor, keys: torch.Tensor):
@@ -51,16 +56,12 @@ def probe_rows_plain(tab, home, keys):
     return cnt, hit, has_empty
 
 
-def lookup_kmers_plain(tab, keys, valid):
-    """Plain torch twin of the kernel: kmer_table.lookup_kmers semantics.
-    Probes offsets 0..PAD_BUCKETS+1 from the home bucket (row clamped to the
-    last pad row); only still-pending lanes are gathered each round."""
-    if tab.dtype != torch.int32 or keys.dtype != torch.int32:
-        raise ValueError("lookup_kmers_plain: tab and keys must be int32 bits")
-    n_buckets, W, S = _layout(tab, keys)
-    B = keys.shape[0]
-    home = home_of(mix32(keys), n_buckets)
-    res = torch.zeros(B, dtype=torch.int64, device=keys.device)
+def _probe_chain_plain(tab, keys, valid, home):
+    """The probe chain of every valid lane from its ``home`` row: offsets
+    0..PAD_BUCKETS+1, the row clamped to the table's last row; only
+    still-pending lanes are gathered each round -> int32 bits [B]."""
+    n_buckets, _W, _S = _layout(tab, keys)
+    res = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
     lanes = torch.nonzero(valid, as_tuple=True)[0]
     last = n_buckets + PAD_BUCKETS - 1
     for off in range(PAD_BUCKETS + 2):
@@ -73,6 +74,35 @@ def lookup_kmers_plain(tab, keys, valid):
     return to_i32_bits(res)
 
 
+def _check_plain(tab, keys, name):
+    if tab.dtype != torch.int32 or keys.dtype != torch.int32:
+        raise ValueError(f"{name}: tab and keys must be int32 bits")
+
+
+def lookup_kmers_plain(tab, keys, valid):
+    """Plain torch twin of the kernel: kmer_table.lookup_kmers semantics."""
+    _check_plain(tab, keys, "lookup_kmers_plain")
+    n_buckets, _W, _S = _layout(tab, keys)
+    return _probe_chain_plain(tab, keys, valid, home_of(mix32(keys), n_buckets))
+
+
+def lookup_kmers_ranged_plain(tab, keys, valid, n_buckets_global: int,
+                              home_base: int):
+    """Plain torch twin of the ranged kernel: ``tab`` holds buckets
+    [home_base, home_base + n_local) of a table of ``n_buckets_global``
+    buckets plus the next PAD_BUCKETS rows. A lane's home is taken over the
+    whole table; lanes whose home lies outside the slice read 0, the others
+    probe the slice at home - home_base. Every value is an int64 holding a
+    uint32, so the range compares are unsigned in meaning."""
+    _check_plain(tab, keys, "lookup_kmers_ranged_plain")
+    n_local, _W, _S = _layout(tab, keys)
+    hg = home_of(mix32(keys), int(n_buckets_global))
+    base = int(home_base)
+    in_range = (hg >= base) & (hg < base + n_local)
+    home = torch.where(in_range, hg - base, 0)
+    return _probe_chain_plain(tab, keys, valid & in_range, home)
+
+
 def check_row_alignment(tab):
     """The kernel copies table rows with 16-byte cp.async: the first row must
     start on a 16-byte boundary (a view at an odd offset would fault)."""
@@ -81,9 +111,9 @@ def check_row_alignment(tab):
                          "not on a 16-byte boundary")
 
 
-def lookup_kmers_cuda(tab, keys, valid):
-    """Launch csrc/probe.cu on the current stream (no synchronise)."""
-    global LAUNCHES
+def _check_cuda(tab, keys, valid):
+    """Device, type, shape and contiguity checks of the kernel's wrapper
+    -> (n_buckets of ``tab``, W, S)."""
     for name, t in (("tab", tab), ("keys", keys), ("valid", valid)):
         if t.device.type != "cuda":
             raise ValueError(f"lookup_kmers_cuda: {name} is on {t.device}, "
@@ -105,27 +135,62 @@ def lookup_kmers_cuda(tab, keys, valid):
     n_buckets, W, S = _layout(tab, keys)
     if n_buckets < 1 or n_buckets >= 1 << 32:
         raise ValueError(f"n_buckets {n_buckets} out of range")
+    return n_buckets, W, S
+
+
+def _launch(fn, tab, keys, valid, *args):
+    """Allocate the output and launch ``fn`` on the current stream (no
+    synchronise); raises if the launch was refused."""
     from jasper_tpu_torch.table import _build
 
     lib = _build.load()
     B = int(keys.shape[0])
     out = torch.empty(B, dtype=torch.int32, device=keys.device)
     if B == 0:
-        return out
+        return out, False
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    rc = lib.jt_probe_lookup(tab.data_ptr(), keys.data_ptr(), valid.data_ptr(),
-                             out.data_ptr(), B, n_buckets, W, S,
-                             keys.device.index or 0, stream)
+    rc = getattr(lib, fn)(tab.data_ptr(), keys.data_ptr(), valid.data_ptr(),
+                          out.data_ptr(), B, *args, keys.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError("probe kernel launch failed: "
                            + lib.jt_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    return out, True
+
+
+def lookup_kmers_cuda(tab, keys, valid):
+    """Launch csrc/probe.cu on the current stream (no synchronise)."""
+    global LAUNCHES
+    n_buckets, W, S = _check_cuda(tab, keys, valid)
+    out, launched = _launch("jt_probe_lookup", tab, keys, valid, n_buckets, W, S)
+    LAUNCHES += launched
     return out
 
 
-def lookup_kmers(tab, keys, valid):
+def lookup_kmers_ranged_cuda(tab, keys, valid, n_buckets_global: int,
+                             home_base: int):
+    """Launch csrc/probe.cu's ranged entry on the current stream."""
+    global RANGED_LAUNCHES
+    n_local, W, S = _check_cuda(tab, keys, valid)
+    if not (1 <= n_buckets_global < 1 << 32 and 0 <= home_base < 1 << 32):
+        raise ValueError(f"n_buckets_global {n_buckets_global} / home_base "
+                         f"{home_base} out of range")
+    out, launched = _launch("jt_probe_lookup_ranged", tab, keys, valid, n_local,
+                            int(n_buckets_global), int(home_base), W, S)
+    RANGED_LAUNCHES += launched
+    return out
+
+
+def lookup_kmers(tab, keys, valid, n_buckets_global: int | None = None,
+                 home_base: int | None = None):
     """Counts [B] (int32 bits) of keys [B, W] (int32 bits) in ``tab``; 0 for
-    absent keys and invalid lanes. CPU tensors -> plain; else the kernel."""
-    if tab.device.type == "cpu":
-        return lookup_kmers_plain(tab, keys, valid)
-    return lookup_kmers_cuda(tab, keys, valid)
+    absent keys and invalid lanes. With ``n_buckets_global`` and
+    ``home_base`` (both or neither), ``tab`` is a bucket-range slice and
+    lanes homed outside it read 0. CPU tensors -> plain; else the kernel."""
+    if (n_buckets_global is None) != (home_base is None):
+        raise ValueError("lookup_kmers: give n_buckets_global and home_base "
+                         "together")
+    cpu = tab.device.type == "cpu"
+    if n_buckets_global is None:
+        return (lookup_kmers_plain if cpu else lookup_kmers_cuda)(tab, keys, valid)
+    fn = lookup_kmers_ranged_plain if cpu else lookup_kmers_ranged_cuda
+    return fn(tab, keys, valid, n_buckets_global, home_base)

@@ -2,8 +2,9 @@
 ``import jax`` and ``import jasper_tpu`` before any other import (this test
 process cannot: tests/conftest.py imports jax), then drives
 ``jasper_tpu_torch.polish.runner``, the pipeline CLI
-(``jasper_tpu_torch.pipeline.cli``) and bin/jellyfish-tpu-torch's count and
-dump on the CPU end to end."""
+(``jasper_tpu_torch.pipeline.cli``, the partitioned scan included),
+bin/jellyfish-tpu-torch's count and dump, ``entry()`` and the claim-round
+insert on the CPU end to end."""
 
 import os
 import subprocess
@@ -72,13 +73,17 @@ def test_port_runs_without_jax(tmp_path):
 
 
 PIPELINE_SCRIPT = textwrap.dedent("""
+    import os
     import sys
     sys.modules["jax"] = None  # any import of jax now raises ImportError
     sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
     from jasper_tpu_torch.pipeline import cli
     res = cli.run(["-a", "asm.fa", "-r", "reads.fq", "-k", "25", "-p", "2",
                    "-t", "1", "--workdir", "wd", "--device", "cpu"])
-    assert res["scan_table_from_count"], "scan did not take the counted table"
+    if os.environ.get("JASPER_TPU_HBM_BUDGET"):  # a budget below the table
+        assert res["scanner"].regime == "partitioned", res["scanner"].regime
+    else:
+        assert res["scan_table_from_count"], "scan did not take the counted table"
     assert res["counts"]._native is not None, "native CountSource not bound"
     assert cli.main(["-a", "asm.fa", "-j", "wd/mer_counts25.jf", "-k", "25",
                      "-t", "1", "--workdir", "wd_j", "--device", "cpu"]) == 0
@@ -104,6 +109,48 @@ def test_partitioned_pipeline_runs_without_jax(tmp_path):
     out = _pipeline_without_jax(tmp_path, {"JT_COUNT_PARTITIONS": "4"})
     assert "count: pass 1/1 counted" in out and "4 ladders" in out
     assert "count: device scan table built (from merged run)" in out
+
+
+def test_partitioned_scan_runs_without_jax(tmp_path):
+    """The same with the polish scan forced partitioned (a byte budget below
+    the table): the ranged lookup over table slices, on -r and -j."""
+    out = _pipeline_without_jax(tmp_path, {"JASPER_TPU_HBM_BUDGET": "65536"})
+    assert out.count("Scanner: PartitionedDeviceScanner (partitioned, P=") == 2
+
+
+TABLE_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
+    import torch
+    from jasper_tpu_torch.entry import entry
+    from jasper_tpu_torch.table.kmer_table import DeviceKmerTable, table_stats
+    fn, args = entry("cpu")
+    counts, below, rel = fn(*args)
+    assert counts.shape == (4096 - 37 + 1,)
+    table = DeviceKmerTable.create(25, 1000, device="cpu")
+    keys = torch.randint(0, 1 << 30, (500, 2), generator=torch.Generator().manual_seed(1))
+    ones = torch.ones(500, dtype=torch.bool)
+    assert table.insert(keys, torch.full((500,), 3), ones) == 0
+    assert (table.lookup(keys, ones) % 3 == 0).all() and table.lookup(keys, ones).min() >= 3
+    assert table_stats(table.tab, 25)[2] == 1500
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
+    assert not loaded, loaded
+    print("NOJAX_TABLE_OK")
+""")
+
+
+def test_entry_and_insert_run_without_jax(tmp_path):
+    """entry() and DeviceKmerTable's claim-round insert and lookup on the
+    CPU, with jax and jasper_tpu blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", TABLE_SCRIPT], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "NOJAX_TABLE_OK" in r.stdout
 
 
 def _pipeline_without_jax(tmp_path, extra_env):

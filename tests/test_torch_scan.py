@@ -1,10 +1,12 @@
-"""Port parity, the scan: jasper_tpu_torch's scan_window_tiled and
-DevicePolishEngine == jasper_tpu's, exactly, at k=25 and k=37. The engine
-is compared pass by pass on the input classes of test_device_engine.py."""
+"""Port parity, the scan: jasper_tpu_torch's tiled scan and classification
+and DevicePolishEngine == jasper_tpu's scan_window_tiled and engine,
+exactly, at k=25 and k=37. The engine is compared pass by pass on the input
+classes of test_device_engine.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from jasper_tpu.count.counter import count_sequences
 from jasper_tpu.io import native_jf
@@ -21,7 +23,7 @@ from jasper_tpu_torch.polish.device_engine import (
     DevicePolishEngine,
     DeviceScanner,
 )
-from jasper_tpu_torch.polish.window import scan_window_tiled
+from jasper_tpu_torch.polish.window import classify, classify_tiled, scan_counts_tiled
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
 from tests import golden_util as G
@@ -52,6 +54,11 @@ def _profiled_table(k, genome):
 
 @pytest.mark.parametrize("k", [25, 37])
 def test_scan_window_tiled_matches(k):
+    """The port's counts in 256-window tiles equal jasper_tpu's, and its
+    classification of them gives jasper_tpu's below and reldrop (threshold
+    5, where jasper_tpu's tile-boundary patch holds); classified a tile at
+    a time (classify_tiled, each tile with the k windows before it), valid
+    and unsafe equal the whole array's."""
     rng = np.random.default_rng(k)
     genome = G.random_genome(rng, 2000)
     tab_np = _profiled_table(k, genome)
@@ -62,15 +69,21 @@ def test_scan_window_tiled_matches(k):
     want = j_scan_window_tiled(jnp.asarray(tab_np), codes, np.uint32(thr), k,
                                tile=256)
     tab = table_from_numpy(tab_np, "cpu")
-    got = scan_window_tiled(tab, codes, thr, k, tile=256)
+    codes_t = torch.from_numpy(codes)
+    counts = scan_counts_tiled(tab, codes_t, k, tile=256)
+    valid, below, rel, unsafe = (a.numpy() for a in classify(codes_t, counts, thr, k))
+    got = (counts.numpy().view(np.uint32), below, rel)
     for g, w, name in zip(got, want, ("counts", "below", "reldrop")):
         assert g.dtype == np.asarray(w).dtype, name
         np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
-    below, rel = got[1], got[2]
     assert below.any() and rel[512 : 512 + k].any()
-    # one tile (no boundary to patch) gives the same arrays
-    for g, a in zip(got, scan_window_tiled(tab, codes, thr, k, tile=1 << 20)):
-        np.testing.assert_array_equal(g, a)
+    # one tile (no boundary) gives the same counts
+    assert torch.equal(counts, scan_counts_tiled(tab, codes_t, k, tile=1 << 20))
+    for tile in (256, 1 << 20):
+        c, v, u = classify_tiled(codes_t, counts, thr, k, tile=tile)
+        np.testing.assert_array_equal(c, got[0])
+        np.testing.assert_array_equal(v, valid)
+        np.testing.assert_array_equal(u, unsafe)
 
 
 def _cases(genome, rng):
