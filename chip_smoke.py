@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9,10,11,12] [--seed 7] [--workdir DIR]
-                          [--ab-probe OTHER_probe.cu]
+                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16] [--seed 7]
+                          [--workdir DIR] [--ab-probe OTHER_probe.cu]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
@@ -67,8 +67,9 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      resident lanes per pass, the device ms of the split flushes and the
      peak device memory;
   9. the jellyfish-compatible entry point (bin/jellyfish-tpu-torch), on
-     race20's files in a child process that starts after phase 11 and runs
-     beside phases 7 and 10 (whose seconds therefore share the card): `count -m 25 -s <reads bytes / 10> -C` of the
+     race20's files in a child process that starts after phase 14 and runs
+     beside phases 7, 10, 15 and 16 (whose seconds therefore share the
+     card): `count -m 25 -s <reads bytes / 10> -C` of the
      whole reads on the card through jf_cli.main in that process, its
      records equal to the .jf phase 6's driver wrote (55,718,396 at 20000
      kb), with its Counting and Writing seconds and peak device memory; on
@@ -97,7 +98,43 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      scanned by the partitioned scanner forced to 4 slices: counts, valid
      and unsafe equal to the replicated scanner's bit for bit; the push
      seconds and rate, the scan seconds against the replicated scan's and
-     the peak device memory.
+     the peak device memory;
+ 13. the hash-sharded table, before phase 9's child starts: race20's table
+     (phase 6's) split by the top hash bits over a mesh of 4 shards of the
+     one card (make_mesh(4, 1, ["cuda:0"] * 4), build_sharded) and the whole
+     draft scanned by ShardedDeviceScanner (windows routed to their owner
+     shard, probed there by the CUDA probe with owner_bits = 2, routed
+     back). Gates: counts, valid and unsafe equal the replicated scanner's
+     bit for bit, and so do those of the replicated scan data-parallel over
+     2 data shards of the card (DeviceScanner(mesh=), K12), owner-bits
+     launches of the sharded scan and probe launches of the data-parallel
+     one (counts reset just before each),
+     and on each shard's sub-table the owner-bits kernel against its plain
+     twin on 4 M draft windows that shard owns (ms, bound, share). Reports
+     the build and scan seconds against the replicated scan's, the lanes
+     routed again after a routing overflow (fallback_lanes of
+     scanned_lanes) and the peak device memory;
+ 14. counting over a data mesh, before phase 9's child starts: race20's
+     whole reads through count_reads_to_host over local_data_mesh(devices=
+     ["cuda:0"] * 2) (chunks dealt round-robin, one ladder each, folded at
+     the finish). Gates: 55,718,396 records at 20000 kb, host and device
+     table bytes equal to phase 6's. Reports its seconds against phase 6's
+     count;
+ 15. two processes, beside phase 9's child: run_pipeline from reads at
+     k=25 on phase 16's race data (make_data(2000, 40)), its draft cut into
+     8 contigs (4 batches), once in this process and once in two child
+     processes on the card joined through JASPER_TPU_COORDINATOR on
+     localhost (gloo; process 0 counts, the other waits at the "db"
+     barrier). Gates: both children exit 0 with their rank and the single
+     run's QV, each polishes 2 batches and launches the probe (its count in
+     the child, from 0), and the polished FASTA and
+     fixes.csv equal the single run's byte for byte;
+ 16. k=37 end to end (ROADMAP F5), beside phase 9's child: the driver from
+     reads at k=37 on make_data(2000, 40) (made in a child beside phases
+     3-4), -b 25000000 -d. Gates: the .jf's records equal an independent
+     numpy count of the reads (two words a k-mer), the probe launched, and
+     the polished FASTA and fixes.csv equal the host walk (PolishEngine, no
+     device scan) on the same table and batch, joined as the driver joins.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -141,6 +178,8 @@ RANGED_DESIGN = ("the bucket probe's warp design with the range compare compiled
                  "(a template flag): the home is taken over the whole table, lanes "
                  "homed outside the slice fetch no row; ms, bound and plain_ms are "
                  "summed over the 4 slices one tile of windows is looked up in")
+OWNER_DESIGN = ("the bucket probe's warp design on one shard of a hash-sharded "
+                "table: the home from the hash shifted past the owner bits")
 AB_PROBE = None  # --ab-probe: another probe.cu's unranged lookup, timed in turns
 PROBE_DESIGN = ("a warp per 32 lanes: coalesced key loads, hash per thread, every "
                 "pending lane's 256 B row fetched at once with cp.async into shared "
@@ -190,11 +229,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def probed_rows(tab, keys, valid, n_global=None, b0=None) -> int:
+def probed_rows(tab, keys, valid, n_global=None, b0=None, owner_bits: int = 0) -> int:
     """Rows the probe chain reads for these inputs: every valid lane's home
     row, and the next row of every lane still pending (the plain twin's
     rounds, counted). Ranged (``tab`` a slice of a table of ``n_global``
-    buckets from bucket ``b0``): only the lanes homed in the slice."""
+    buckets from bucket ``b0``): only the lanes homed in the slice. On a
+    shard of a sharded table the home skips ``owner_bits`` hash bits."""
     import torch
 
     from jasper_tpu_torch.ops.hashing import home_of, mix32
@@ -203,7 +243,7 @@ def probed_rows(tab, keys, valid, n_global=None, b0=None) -> int:
 
     n_buckets = tab.shape[0] - PAD_BUCKETS
     if n_global is None:
-        home = home_of(mix32(keys), n_buckets)
+        home = home_of(mix32(keys), n_buckets, owner_bits)
     else:
         home = home_of(mix32(keys), n_global) - b0
         valid = valid & (home >= 0) & (home < n_buckets)
@@ -219,7 +259,7 @@ def probed_rows(tab, keys, valid, n_global=None, b0=None) -> int:
     return rows
 
 
-def probe_bound(tab, keys, valid, calls: int = 1, rows=None) -> dict:
+def probe_bound(tab, keys, valid, calls: int = 1, rows=None, owner_bits: int = 0) -> dict:
     """The least time the card could take for ``calls`` probe calls on these
     inputs (each one slice of a partitioned table when ``calls`` > 1, its
     probed rows summed in ``rows``): each lane's key words, valid flag and
@@ -230,7 +270,7 @@ def probe_bound(tab, keys, valid, calls: int = 1, rows=None) -> dict:
     B, W = keys.shape
     S = 64 // (W + 1)
     if rows is None:
-        rows = probed_rows(tab, keys, valid)
+        rows = probed_rows(tab, keys, valid, owner_bits=owner_bits)
     nbytes = calls * B * (4 * W + 1 + 4) + rows * 256
     ops = calls * B * (8 * W + 10) + rows * S * (W + 2)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -240,29 +280,32 @@ def probe_bound(tab, keys, valid, calls: int = 1, rows=None) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def compare_probe(tab, keys, valid, iters=(20, 5)) -> dict:
+def compare_probe(tab, keys, valid, iters=(20, 5), owner_bits: int = 0) -> dict:
     """Kernel vs plain on the same CUDA tensors: equality, times, the bound
-    and the kernel's share of it."""
+    and the kernel's share of it; with ``owner_bits``, ``tab`` is a shard
+    of a sharded table (those launches count in OWNER_LAUNCHES)."""
     import torch
 
     from jasper_tpu_torch.table import probe
 
-    launches0 = probe.LAUNCHES
-    got = probe.lookup_kmers_cuda(tab, keys, valid)
-    want = probe.lookup_kmers_plain(tab, keys, valid)
+    launches0 = probe.LAUNCHES + probe.OWNER_LAUNCHES
+    got = probe.lookup_kmers_cuda(tab, keys, valid, owner_bits)
+    want = probe.lookup_kmers_plain(tab, keys, valid, owner_bits)
     torch.cuda.synchronize()
     err = int(((got.to(torch.int64) & M32) - (want.to(torch.int64) & M32))
               .abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
         raise AssertionError(f"probe kernel != plain (max abs err {err})")
     B = keys.shape[0]
-    res = {"lanes": B, "max_abs_err": err, **probe_bound(tab, keys, valid)}
-
-    res["ms"] = cuda_ms(lambda: probe.lookup_kmers_cuda(tab, keys, valid), iters[0])
-    res["plain_ms"] = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid), iters[1])
+    res = {"lanes": B, "max_abs_err": err, "owner_bits": owner_bits,
+           **probe_bound(tab, keys, valid, owner_bits=owner_bits)}
+    res["ms"] = cuda_ms(lambda: probe.lookup_kmers_cuda(tab, keys, valid, owner_bits),
+                        iters[0])
+    res["plain_ms"] = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid, owner_bits),
+                              iters[1])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    res["launches_in_comparison"] = probe.LAUNCHES - launches0
-    if AB_PROBE is not None:  # the other kernel against this one, in turns
+    res["launches_in_comparison"] = probe.LAUNCHES + probe.OWNER_LAUNCHES - launches0
+    if AB_PROBE is not None and not owner_bits:  # the other kernel against this one, in turns
         if not torch.equal(AB_PROBE(tab, keys, valid), got):
             raise AssertionError("--ab-probe kernel != this checkout's")
         res["ab_ms"] = {"other": [], "this": []}
@@ -277,7 +320,8 @@ def compare_probe(tab, keys, valid, iters=(20, 5)) -> dict:
 def other_probe(path: str):
     """``--ab-probe``: build another version of csrc/probe.cu with the
     checkout's nvcc flags and bind its jt_probe_lookup (the same C
-    interface) -> lookup(tab, keys, valid) on the current stream."""
+    interface, owner_bits 0) -> lookup(tab, keys, valid) on the current
+    stream."""
     import ctypes
 
     import torch
@@ -291,14 +335,15 @@ def other_probe(path: str):
         raise RuntimeError(f"nvcc {path} failed:\n{r.stderr}")
     fn = ctypes.CDLL(so).jt_probe_lookup
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
 
     def lookup(tab, keys, valid):
         n_buckets, W, S = probe._check_cuda(tab, keys, valid)
         out = torch.empty(keys.shape[0], dtype=torch.int32, device=keys.device)
         if fn(tab.data_ptr(), keys.data_ptr(), valid.data_ptr(), out.data_ptr(),
-              keys.shape[0], n_buckets, W, S, keys.device.index or 0,
+              keys.shape[0], n_buckets, 0, W, S, keys.device.index or 0,
               torch.cuda.current_stream(keys.device).cuda_stream):
             raise RuntimeError(f"{path}: jt_probe_lookup failed")
         return out
@@ -1431,6 +1476,20 @@ def _check_lookups(tab, keys, counts, what: str) -> None:
             raise AssertionError(f"{what}: a record does not look up to its count")
 
 
+def insert_bound(n: int, W: int, placed: int, round_lanes: int, secs: float) -> dict:
+    """K8's bound for an insert of ``n`` records (insert_kmers): its inputs
+    read once (W key words and the count, 4 B each), and per claim round
+    each pending lane's 256 B row gathered plus 12 B of slot traffic (the
+    count add or the claim's scatter-min, its read-back and its reset),
+    and each placed record's W + 1 words written, at HBM_BYTES_PER_S;
+    ``round_lanes`` is the pending lanes summed over the rounds
+    (kmer_table.ROUND_LANES)."""
+    nbytes = n * 4 * (W + 1) + round_lanes * (256 + 12) + placed * 4 * (W + 1)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"round_lanes": round_lanes, "bound_bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / (secs * 1e3)}
+
+
 def phase_insert(host, rng, device, card: str, records_gate: int | None,
                  batch: int = 1 << 22) -> dict:
     """Phase 11: the claim-round insert (K8, torch ops) of race20's records
@@ -1443,7 +1502,7 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
     import torch
 
     from jasper_tpu_torch.ops.hashing import mix32
-    from jasper_tpu_torch.table import build
+    from jasper_tpu_torch.table import build, kmer_table
     from jasper_tpu_torch.table.kmer_table import empty_table, table_from_numpy
     from jasper_tpu_torch.table.layout import FAST_LOAD, slots_for
 
@@ -1468,12 +1527,14 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
            "table_bytes": int(host.tab.nbytes)}
     del tab5, h
     tab = torch.zeros(host.tab.shape, dtype=torch.int32, device=device)
+    kmer_table.ROUND_LANES = 0
     pending, placed, rounds, secs = _insert_batches(tab, keys, counts, batch, rng)
     if pending or placed != N:
         raise AssertionError(f"insert: {pending} pending, {placed} placed of {N}")
     _check_lookups(tab, keys, counts, "race20 insert")
     out.update(insert_s=secs, rounds_per_batch=rounds,
-               insert_records_per_s=N / secs)
+               insert_records_per_s=N / secs,
+               **insert_bound(N, host.W, placed, kmer_table.ROUND_LANES, secs))
     del tab, keys, counts
     torch.cuda.empty_cache()
 
@@ -1481,12 +1542,14 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
     keys37 = to_dev(distinct_keys(rng, 37, n37, salt=37))
     counts37 = to_dev(rng.integers(1, 1 << 16, size=n37).astype(np.uint32))
     tab = empty_table(37, slots_for(n37, FAST_LOAD), device)
+    kmer_table.ROUND_LANES = 0
     pending, placed, rounds, secs = _insert_batches(tab, keys37, counts37, batch, rng)
     if pending or placed != n37:
         raise AssertionError(f"k=37 insert: {pending} pending, {placed} placed of {n37}")
     _check_lookups(tab, keys37, counts37, "k=37 insert")
     out["k37"] = {"records": n37, "table_bytes": int(tab.numel() * 4), "insert_s": secs,
-                  "rounds_per_batch": rounds, "insert_records_per_s": n37 / secs}
+                  "rounds_per_batch": rounds, "insert_records_per_s": n37 / secs,
+                  **insert_bound(n37, 3, placed, kmer_table.ROUND_LANES, secs)}
     out["card"] = card
     del tab, keys37, counts37
     torch.cuda.empty_cache()
@@ -1732,6 +1795,382 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
     return out
 
 
+# -- phases 13-16: the sharded table, mesh counting, processes, k=37 ----------
+
+
+SHARDS = 4  # phase 13: race20's table over this many shards of the one card
+F5_KB = 2_000  # phase 16: the k=37 slice of the race configuration
+
+
+def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -> dict:
+    """Phase 13: race20's host table (phase 6's) split by the top hash bits
+    over a ("data", "table") mesh of SHARDS shards of the one card
+    (make_mesh(4, 1, [device] * 4) -> build_sharded), and the whole draft
+    scanned by ShardedDeviceScanner (every window routed to its owner
+    shard, probed there by K1 with owner_bits = 2, routed back). Gates:
+    counts, valid and unsafe equal the replicated DeviceScanner's on
+    ``rep_tab`` bit for bit; owner-bits launches (counts reset just before
+    the scan) > 0; and the replicated scan data-parallel over 2 data
+    shards of the card (DeviceScanner(mesh=), K12) equal too. Then K1 with
+    owner_bits against its plain twin on each shard's sub-table, 4 M draft
+    windows that shard owns. The data-parallel scan's probe launches are
+    counted from 0 around its prepare, and gated > 0."""
+    import torch
+
+    from jasper_tpu_torch.ops.codes import encode
+    from jasper_tpu_torch.ops.hashing import mix32
+    from jasper_tpu_torch.ops.kmer import canonical_windows_fast
+    from jasper_tpu_torch.parallel.scanner import (
+        SCAN_TILE,
+        ShardedDeviceScanner,
+        local_data_mesh,
+    )
+    from jasper_tpu_torch.parallel.sharded_table import _owner, _owner_bits, make_mesh
+    from jasper_tpu_torch.polish.device_engine import DeviceScanner
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.probe import to_i32_bits
+
+    seq = draft.decode()
+    mesh = make_mesh(SHARDS, 1, [device] * SHARDS)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    scanner = ShardedDeviceScanner(host, k, mesh, tile=SCAN_TILE)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    probe.LAUNCHES = probe.OWNER_LAUNCHES = 0
+    got = scanner.prepare_all({"draft": seq}, 5)["draft"]
+    owner_launches, plain_launches = probe.OWNER_LAUNCHES, probe.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(device) - base
+    rep = DeviceScanner(rep_tab, k)
+    want = rep.prepare(seq, 5)
+    # K12: the replicated scan data-parallel over 2 data shards of the card
+    dp = DeviceScanner(rep_tab, k, mesh=local_data_mesh(devices=[device] * 2))
+    probe.LAUNCHES = 0
+    dp_got = dp.prepare(seq, 5)
+    dp_launches = probe.LAUNCHES
+    for a in ("counts", "valid", "unsafe"):
+        if not np.array_equal(getattr(got, a), getattr(want, a)):
+            raise AssertionError(f"sharded scan {a} != replicated scan's")
+        if not np.array_equal(getattr(dp_got, a), getattr(want, a)):
+            raise AssertionError(f"data-parallel scan {a} != replicated scan's")
+    if owner_launches <= 0 or plain_launches:
+        raise AssertionError(f"sharded scan: {owner_launches} owner-bits launches, "
+                             f"{plain_launches} whole-table ones")
+    if dp_launches <= 0:
+        raise AssertionError(f"data-parallel scan: {dp_launches} probe launches")
+    ob = _owner_bits(SHARDS)
+    keys, valid = canonical_windows_fast(torch.from_numpy(encode(draft)).to(device), k)
+    keys, valid = keys[valid], valid[valid]  # the draft's present windows
+    owner = _owner(mix32(keys), SHARDS)
+    rows = []
+    for t in range(SHARDS):
+        kt = to_i32_bits(keys[owner == t][:LANES])
+        row = compare_probe(scanner.tabs[t], kt, torch.ones(kt.shape[0], dtype=torch.bool,
+                                                            device=device), owner_bits=ob)
+        row.update(shard=t, sub_table_bytes=int(scanner.tabs[t].numel() * 4))
+        rows.append(row)
+    out = {"shards": SHARDS, "windows": int(got.n), "owner_bits": ob,
+           "table_bytes": int(host.tab.nbytes),
+           "sub_table_bytes": [int(t.numel() * 4) for t in scanner.tabs],
+           "build_s": build_s, "sharded_scan_s": scanner.seconds,
+           "replicated_scan_s": rep.seconds, "data_parallel_scan_s": dp.seconds,
+           "owner_bits_launches": owner_launches, "data_parallel_launches": dp_launches,
+           "fallback_lanes": scanner.fallback_lanes, "scanned_lanes": scanner.scanned_lanes,
+           "peak_device_bytes_above_base": peak,
+           "probe": [{key: r[key] for key in ("shard", "lanes", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "share_of_bound", "probed_rows",
+                                              "max_abs_err", "sub_table_bytes")}
+                     for r in rows], "card": card}
+    log("sharded scan " + json.dumps(out))
+    del scanner
+    torch.cuda.empty_cache()
+    return {**out, "_rows": rows}
+
+
+def _count_seconds(drv) -> float:
+    """Phase 6's count, from its start to the host table (stage splits)."""
+    total, on = 0.0, False
+    for msg, dt in drv["stage_seconds_since_previous"]:
+        if on:
+            total += dt
+        if msg.startswith("count: start"):
+            on = True
+        if on and msg.startswith("count: host table built"):
+            return total
+    raise AssertionError("phase 6's count stages not found")
+
+
+def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device,
+                     card: str, k: int = 25) -> dict:
+    """Phase 14: race20's whole reads counted by count_reads_to_host over a
+    ("data",) mesh of two shards of the one card (local_data_mesh(devices=
+    [device] * 2): chunks dealt round-robin, one ladder each, folded at the
+    finish). Gates: the records (55,718,396 at full size) and the host and
+    device table bytes equal phase 6's table (``scan_tab``)."""
+    import torch
+
+    from jasper_tpu_torch.count.counter import count_reads_to_host
+    from jasper_tpu_torch.parallel.scanner import local_data_mesh
+    from jasper_tpu_torch.table.kmer_table import table_to_numpy
+
+    mesh = local_data_mesh(devices=[device] * 2)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    logs = []
+    t0 = time.perf_counter()
+    host, rkeys, _rcounts, dev_tab = count_reads_to_host(
+        [reads], k, device, hash_size_hint=max(os.path.getsize(reads) // 10, 1024),
+        tlog=logs.append, mesh=mesh)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base
+    if records_gate is not None and len(rkeys) != records_gate:
+        raise AssertionError(f"mesh count: {len(rkeys)} records != {records_gate}")
+    if dev_tab is None or not torch.equal(dev_tab, scan_tab):
+        raise AssertionError("mesh count: device table != phase 6's")
+    if not np.array_equal(host.tab, table_to_numpy(scan_tab)):
+        raise AssertionError("mesh count: host table != phase 6's")
+    out = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.flat],
+           "reads_bytes": os.path.getsize(reads), "records": int(len(rkeys)),
+           "count_s": wall, "phase6_count_s": count6_s,
+           "peak_device_bytes_above_base": peak,
+           "stages": [m for m in logs if m.startswith("count: ")], "card": card}
+    del host, rkeys, _rcounts, dev_tab
+    torch.cuda.empty_cache()
+    log("mesh count " + json.dumps(out))
+    return out
+
+
+TWO_PROCESS = """
+import json, sys
+from jasper_tpu_torch.pipeline.driver import run_pipeline
+from jasper_tpu_torch.table import probe
+res = run_pipeline(**json.loads(sys.argv[1]))
+print("RESULT " + json.dumps({"process": res["process"], "q_before": res["q_before"],
+                              "q_after": res["q_after"],
+                              "scanner": res["scanner"] is not None,
+                              "probe_launches": probe.LAUNCHES}), flush=True)
+mods = sorted(m for m in sys.modules if m == "jasper_tpu" or m.startswith("jasper_tpu."))
+assert not mods, mods
+"""
+
+
+def phase_two_processes(asm: str, reads: str, device, card: str, children,
+                        k: int = 25) -> dict:
+    """Phase 15: run_pipeline from phase 16's race reads (make_data(F5_KB,
+    40)) at k=25 on their draft cut into 8 contigs (-t 8, -b a contig: 4
+    batches), once in this process and once in two child processes on the
+    card joined through JASPER_TPU_COORDINATOR on localhost (gloo):
+    process 0 splits, counts, writes the .jf and the histogram and joins,
+    each polishes two batches. Gates: both children exit 0, each reports
+    its rank and the single run's QV, and the polished FASTA and fixes.csv
+    equal the single run's byte for byte."""
+    import socket
+
+    from jasper_tpu_torch.pipeline.driver import run_pipeline
+
+    d = os.path.join(os.path.dirname(reads), "two_process")
+    os.makedirs(d, exist_ok=True)
+    draft = read_fasta_one(asm)
+    n = -(-len(draft) // 8)
+    cut = os.path.join(d, "asm.fa")
+    with open(cut, "wb") as f:
+        for i in range(8):
+            f.write(f">ctg{i}\n".encode() + draft[i * n : (i + 1) * n] + b"\n")
+    # -b one contig: the driver packs two contigs a batch (4 batches)
+    kw = {"assembly": cut, "reads": [reads], "k": k, "threads": 8, "passes": 2,
+          "batch": n, "device": str(device)}
+    t0 = time.perf_counter()
+    single = run_pipeline(workdir=os.path.join(d, "single"), **kw)
+    single_s = time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kw["workdir"] = os.path.join(d, "multi")
+    procs = []
+    t0 = time.perf_counter()
+    for pid in range(2):
+        env = dict(os.environ, PYTHONPATH=HERE, JASPER_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   JASPER_TPU_NUM_PROCESSES="2", JASPER_TPU_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen([sys.executable, "-c", TWO_PROCESS, json.dumps(kw)],
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    children += procs
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    multi_s = time.perf_counter() - t0
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"process {pid} exited with {p.returncode}:\n{out[-3000:]}")
+    results = [json.loads(next(ln for ln in out.splitlines()
+                               if ln.startswith("RESULT "))[7:]) for out in outs]
+    launches = [r.pop("probe_launches") for r in results]
+    for pid, r in enumerate(results):
+        want = {"process": [pid, 2], "q_before": single["q_before"],
+                "q_after": single["q_after"], "scanner": True}
+        if r != want:
+            raise AssertionError(f"process {pid}: {r} != {want}")
+        if launches[pid] <= 0:
+            raise AssertionError(f"process {pid}: {launches[pid]} probe launches")
+    for name in ("asm.fa.polished.fasta", "asm.fa.fixes.csv"):
+        with open(os.path.join(d, "single", name), "rb") as a, \
+                open(os.path.join(d, "multi", name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"two-process {name} != single-process")
+    batches = [out.count("polish: batch") for out in outs]
+    if sorted(batches) != [2, 2]:
+        raise AssertionError(f"batches polished per process: {batches}")
+    out = {"contigs": 8, "bases": len(draft), "batch": kw["batch"],
+           "batches_per_process": batches, "probe_launches_per_process": launches,
+           "q_before": single["q_before"], "q_after": single["q_after"],
+           "single_s": single_s, "two_process_s": multi_s, "card": card}
+    shutil.rmtree(d)
+    log("two processes " + json.dumps(out))
+    return out
+
+
+def oracle_counts_wide(fastq: str, k: int):
+    """oracle_counts for 32 < k <= 36 + 32: every canonical k-mer of every
+    read as two packed words, (hi, lo) = (the first k - 32 bases, the last
+    32), compared as a pair; -> (hi, lo, counts) of the distinct ones in
+    (hi, lo) order. The windows are packed by doubling (2, 4, ..., 32
+    bases a word from two halves), forward with the first base high and
+    reverse-complemented with it low."""
+    with open(fastq, "rb") as f:
+        seqs = f.read().split(b"\n")[1::4]
+    L = len(seqs[0])
+    if any(len(q) != L for q in seqs):
+        raise ValueError("oracle_counts_wide needs reads of one length")
+    lut = np.full(256, 4, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = [0, 1, 2, 3]
+    codes = lut[np.frombuffer(b"".join(seqs), np.uint8)].reshape(len(seqs), L)
+    n, top = L - k + 1, k - 32
+    c = (codes & 3).astype(np.uint64)
+    fwd = {1: c}  # fwd[m][:, i]: bases i..i+m-1, base i most significant
+    rev = {1: np.uint64(3) - c}  # complements, base i least significant
+    m = 1
+    while m < 32:
+        f, r = fwd[m], rev[m]
+        fwd[2 * m] = (f[:, :-m] << np.uint64(2 * m)) | f[:, m:]
+        rev[2 * m] = r[:, :-m] | (r[:, m:] << np.uint64(2 * m))
+        m *= 2
+
+    def packed(d, first, count, low_first):
+        """Words of ``count`` (< 32) bases from column ``first`` on."""
+        out = np.zeros((len(seqs), n), np.uint64)
+        done = 0
+        for m in (16, 8, 4, 2, 1):
+            if count - done >= m:
+                part = d[m][:, first + done : first + done + n]
+                if low_first:
+                    out |= part << np.uint64(2 * done)
+                else:
+                    out = (out << np.uint64(2 * m)) | part
+                done += m
+        return out
+
+    f_hi = packed(fwd, 0, top, False)
+    f_lo = fwd[32][:, top : top + n]
+    r_lo = rev[32][:, :n]
+    r_hi = packed(rev, 32, top, True)
+    del fwd, rev
+    bad = np.concatenate([np.zeros((len(seqs), 1), np.int32),
+                          np.cumsum(codes > 3, axis=1, dtype=np.int32)], axis=1)
+    valid = ((bad[:, k:] - bad[:, :n]) == 0).ravel()
+    f_hi, f_lo, r_hi, r_lo = (a.ravel()[valid] for a in (f_hi, f_lo, r_hi, r_lo))
+    fwd_min = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
+    hi, lo = np.where(fwd_min, f_hi, r_hi), np.where(fwd_min, f_lo, r_lo)
+    del f_hi, f_lo, r_hi, r_lo
+    order = np.argsort(lo)  # then stably by hi (< 2^16: a radix pass)
+    order = order[np.argsort(hi[order].astype(np.uint16), kind="stable")]
+    hi, lo = hi[order], lo[order]
+    new = np.ones(len(hi), bool)
+    new[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    starts = np.flatnonzero(new)
+    return hi[starts], lo[starts], np.diff(np.append(starts, len(hi)))
+
+
+def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
+              k: int = 37) -> dict:
+    """Phase 16 (ROADMAP F5): the driver from reads at k=37 (W = 3) on a
+    F5_KB slice of the race configuration (make_data(F5_KB, 40), made in a
+    child beside phases 3-4), -p 2 -t 1 -b 25000000 -d. Gates: the .jf's
+    records equal an independent numpy count of the reads
+    (oracle_counts_wide); the probe launched; the polished FASTA and
+    fixes.csv equal jasper_tpu's host walk (PolishEngine, no device scan)
+    run on the same table and batch, joined as the driver joins."""
+    import torch
+
+    from jasper_tpu_torch.io.jf import read_jf
+    from jasper_tpu_torch.pipeline import cli
+    from jasper_tpu_torch.pipeline.driver import join_fix_csvs, join_polished
+    from jasper_tpu_torch.polish.engine import PolishEngine
+    from jasper_tpu_torch.polish.runner import polish_file
+    from jasper_tpu_torch.table import probe
+
+    wd = os.path.join(os.path.dirname(reads), "run37")
+    probe.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
+                   "-b", "25000000", "-d", "--workdir", wd, "--device", str(device)])
+    wall = time.perf_counter() - t0
+    launches = probe.LAUNCHES
+    peak = torch.cuda.max_memory_allocated(device)
+    if launches <= 0:
+        raise AssertionError("the k=37 driver path never launched the probe kernel")
+    with open(os.path.join(wd, "threshold.txt")) as f:
+        thr = int(f.read())
+
+    t0 = time.perf_counter()
+    kk, keys, counts, _header = read_jf(os.path.join(wd, f"mer_counts{k}.jf"))
+    top = k - 32  # keys' words: w0 the last 16 bases, w1 the next 16, w2 the first k-32
+    got_hi = keys[:, 2].astype(np.uint64)
+    got_lo = keys[:, 0].astype(np.uint64) | (keys[:, 1].astype(np.uint64) << np.uint64(32))
+    order = np.lexsort((got_lo, got_hi))
+    hi, lo, cnt = oracle_counts_wide(reads, k)
+    oracle_s = time.perf_counter() - t0
+    if not (kk == k and np.array_equal(got_hi[order], hi) and np.array_equal(got_lo[order], lo)
+            and np.array_equal(counts[order], cnt)):
+        raise AssertionError(f"k=37 count != oracle: {len(keys)} vs {len(hi)} distinct")
+    if int(hi.max(initial=0)) >> (2 * top):
+        raise AssertionError("k=37 oracle: a high word past its bases")
+
+    # the host walk on the same table and batch, joined as the driver joins
+    hd = os.path.join(os.path.dirname(reads), "host37")
+    os.makedirs(hd, exist_ok=True)
+    batches = sorted(p for p in os.listdir(wd) if re.match(r"asm\.fa\.batch\.\d+\.fa$", p))
+    t0 = time.perf_counter()
+    for bn in batches:
+        polish_file(os.path.join(wd, bn), res["counts"], k, thr, 2, fix=True, test=True,
+                    fout=f"{bn}.fix.csv", fixedout=f"{bn}.fixed.fa", workdir=hd,
+                    engine_cls=PolishEngine)
+    host_s = time.perf_counter() - t0
+    with open(asm) as f:
+        order_c = [ln[1:].split()[0] for ln in f if ln.startswith(">")]
+    join_polished([os.path.join(hd, f"_iter1_{bn}.fixed.fa") for bn in batches],
+                  res["batch_size"], order_c, os.path.join(hd, "polished.fasta"))
+    join_fix_csvs(sorted(os.path.join(hd, p) for p in os.listdir(hd)
+                         if p.endswith(".fix.csv")), os.path.join(hd, "fixes.csv"))
+    for mine, theirs in (("asm.fa.polished.fasta", "polished.fasta"),
+                         ("asm.fa.fixes.csv", "fixes.csv")):
+        with open(os.path.join(wd, mine), "rb") as a, open(os.path.join(hd, theirs), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"k=37 {mine} != the host walk's")
+    polished = read_fasta_one(os.path.join(wd, "asm.fa.polished.fasta"))
+    out = {"k": k, "genome_bp": len(genome), "reads_bytes": os.path.getsize(reads),
+           "records": int(len(keys)), "threshold": thr, "q_before": res["q_before"],
+           "q_after": res["q_after"], "probe_launches": launches, "batches": len(batches),
+           "repaired_share": repaired_share(genome, polished, errors),
+           "wall_s": wall, "oracle_s": oracle_s, "host_walk_s": host_s,
+           "peak_device_bytes": peak, "card": card}
+    log("k=37 driver path " + json.dumps(out))
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-mbp", type=float, default=5.0,
@@ -1741,9 +2180,9 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12",
-                    help="phases to run after 1-2, comma-separated (7, 9, 10 and "
-                         "11 need 6, 12 needs 8)")
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    help="phases to run after 1-2, comma-separated (7, 9, 10, 11, "
+                         "13 and 14 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--ab-probe", default=None, metavar="FILE",
                     help="another version of csrc/probe.cu: its unranged kernel is "
@@ -1754,8 +2193,8 @@ def main(argv=None) -> int:
                          ".smoke_work/ in the checkout; removed at the end)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if phases & {7, 9, 10, 11} and 6 not in phases:
-        ap.error("phases 7, 9, 10 and 11 hold their results against phase 6's")
+    if phases & {7, 9, 10, 11, 13, 14} and 6 not in phases:
+        ap.error("phases 7, 9, 10, 11, 13 and 14 hold their results against phase 6's")
     if 12 in phases and 8 not in phases:
         ap.error("phase 12 scans phase 8's table")
     if not phases & {6, 8}:
@@ -1799,10 +2238,12 @@ def main(argv=None) -> int:
     race = start_race_data(workdir, "race", args.race_kb, args.seed) \
         if phases & {5, 6} else None
     big = start_race_data(workdir, "race100", args.big_kb, args.seed) if 8 in phases else None
-    children += [w.proc for w in (race, big) if w is not None]
+    race37 = start_race_data(workdir, "race37", F5_KB, args.seed) \
+        if phases & {15, 16} else None
+    children += [w.proc for w in (race, big, race37) if w is not None]
     try:
-        drivers, shapes, probe_rows, ranged = run_phases(args, phases, device, card,
-                                                         workdir, race, big, children)
+        drivers, shapes, probe_rows, ranged, more = run_phases(
+            args, phases, device, card, workdir, race, big, race37, children)
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -1817,7 +2258,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "jasper_tpu_torch/csrc/probe.cu",
         "replaces": "jasper_tpu/table/pallas_probe.py:73",
-        "launches": sum(d["probe_launches"] for d in drivers),
+        "launches": sum(d["probe_launches"] for d in drivers + more.get("k37", [])),
         "max_abs_err": max_err,
         "ms": shapes[0]["ms"],
         "plain_ms": shapes[0]["plain_ms"],
@@ -1842,6 +2283,24 @@ def main(argv=None) -> int:
             "library_ms": None,  # no single PyTorch call computes a ranged probe
             "design": RANGED_DESIGN,
         })
+    sharded = more.get("sharded")
+    if sharded is not None:
+        rows = sharded["_rows"]
+        kernels["kernels"].append({
+            "name": "bucket_probe_owner_bits",
+            "route": "cuda",
+            "source": "jasper_tpu_torch/csrc/probe.cu",
+            "replaces": "jasper_tpu/table/pallas_probe.py:142",
+            "launches": sharded["owner_bits_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            # per 4 M-lane tile on one shard, the mean over the shards
+            "ms": sum(r["ms"] for r in rows) / len(rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows) / len(rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows) / len(rows),
+            "bound_by": rows[0]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a bucket probe
+            "design": OWNER_DESIGN,
+        })
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
         f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
@@ -1858,14 +2317,29 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_phases(args, phases, device, card: str, workdir: str, race, big, children):
-    """Phases 3-12; ``race`` and ``big`` wait for race20's and race100's
-    data. Phase 9 runs in a child process beside phases 7 and 10 (its
-    routes are host-bound); it is appended to ``children``. Phase 11 and
-    the ranged kernel at the main path's shape run before it starts.
+def run_race37(phases, race37, device, card: str, children) -> dict:
+    """Phases 15 and 16 on the race data ``race37`` waits for."""
+    import torch
+
+    asm, reads, genome, errors = race37()
+    if 15 in phases:
+        phase_two_processes(asm, reads, device, card, children)
+    out = {"k37": [phase_k37(asm, reads, genome, errors, device, card)]} if 16 in phases else {}
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
+               children):
+    """Phases 3-16; ``race``, ``big`` and ``race37`` wait for race20's,
+    race100's and phase 16's data. Phase 9 runs in a child process beside
+    phases 7, 10, 15 and 16 (its routes are host-bound); it is appended to
+    ``children``, and so are phase 15's two processes. Phases 11, 13 and 14
+    and the ranged kernel at the main path's shape run before it starts.
     Returns the driver paths' reports, the main-shape probe rows, phase 3's
-    rows and the ranged kernel's comparisons (phase 3's, then the one at
-    the main path's shape) with phase 10's ranged launches."""
+    rows, the ranged kernel's comparisons (phase 3's, then the one at the
+    main path's shape) with phase 10's ranged launches, and the reports of
+    phases 13 ("sharded") and 16 ("k37", a list)."""
     import torch
 
     rng = np.random.default_rng(args.seed)
@@ -1874,7 +2348,7 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, childre
     if 4 in phases:
         phase_runner(args, rng, device, workdir)
         torch.cuda.empty_cache()
-    drivers, shapes = [], []
+    drivers, shapes, more = [], [], {}
     if race is not None:
         asm, reads, genome, errors = race()
         if 5 in phases:
@@ -1894,7 +2368,7 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, childre
             # before phase 9's child shares the card, on race20's table
             # pulled from it (equal to the host-built one: phase 6's gate)
             host = None
-            if phases & {10, 11}:
+            if phases & {10, 11, 13}:
                 from jasper_tpu_torch.table.host_table import HostKmerTable
                 from jasper_tpu_torch.table.kmer_table import table_to_numpy
 
@@ -1903,7 +2377,12 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, childre
                 ranged["rows"].append(phase_ranged_shape(host, draft, device, card))
             if 11 in phases:
                 phase_insert(host, rng, device, card, RACE_RECORDS if full else None)
+            if 13 in phases:
+                more["sharded"] = phase_sharded(host, draft, scanner.tab, device, card)
             del host
+            if 14 in phases:
+                phase_mesh_count(reads, scanner.tab, RACE_RECORDS if full else None,
+                                 _count_seconds(drv), device, card)
             jelly = None
             if 9 in phases:
                 jelly = start_jellyfish(reads, jf, card, RACE_RECORDS if full else None)
@@ -1922,10 +2401,14 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, childre
                     {"threshold": 5, "qv": list(RACE_QV)} if full else {})
                 ranged["launches"] = part["ranged_launches"]
                 torch.cuda.empty_cache()
+            if race37 is not None:
+                more.update(run_race37(phases, race37, device, card, children))
             if jelly is not None:
                 jelly()
         shutil.rmtree(os.path.dirname(reads))  # race20's files go before race100's run
         torch.cuda.empty_cache()
+    if race37 is not None and 6 not in phases:
+        more.update(run_race37(phases, race37, device, card, children))
     if big is not None:
         asm, reads, genome, errors = big()
         gates = {"partitions_chosen": True}
@@ -1940,7 +2423,7 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, childre
         shapes.append(phase_main_shape(scanner, draft, device, drv["probe_launches"], card))
         if 12 in phases:
             phase_partitioned_big(scanner, draft, device, card)
-    return drivers, shapes, probe_rows, ranged
+    return drivers, shapes, probe_rows, ranged, more
 
 
 if __name__ == "__main__":

@@ -30,6 +30,12 @@ table. Device->host pulls are asynchronous (pinned buffers, a side stream
 and an event). The host merge needs the native library and raises without
 it: there is no slower numpy path.
 
+With a ("data",) mesh (parallel/scanner.py:local_data_mesh) count_reads
+deals the chunks round-robin over the mesh's devices, one ladder each
+(count/mesh_runs.py), and count_reads_to_host counts classic, host-merged
+or partitioned (the P-pass filter; the grouped passes are single-device,
+as in jasper_tpu) through it.
+
 count_reads also carries the jellyfish CLI's routes (pipeline/jf_cli.py):
 forward keys without -C, the -Q quality mask, a host key filter (--bc,
 --bf-size, --if: each chunk deduplicated on the host, filtered, and the
@@ -46,6 +52,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from jasper_tpu_torch.count.mesh_runs import MeshRunAccumulator, push_group
 from jasper_tpu_torch.count.sorted_runs import (
     PartitionedRunAccumulator,
     PartitionSliceOverflow,
@@ -216,7 +223,7 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
                 chunk_len: int = 1 << 23, progress=None, canonical: bool = True,
                 min_qual_char: str | None = None, key_filter=None, on_full=None,
                 on_full_run=None, partition=None, codes_sink=None,
-                codes_source=None, accumulator=None):
+                codes_source=None, accumulator=None, mesh=None):
     """Stream all reads in ``paths`` (file paths, or readable binary streams
     such as a -g generator's pipes) through a device ladder and return the
     accumulator (finish it with _finish_to_table, or pull it to the host).
@@ -238,7 +245,12 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
     itself). partition=(p, P) counts only the p-th of P hash partitions.
     codes_sink collects the parsed (codes, fill) chunks and codes_source
     replays them in place of parsing. progress(n_chunks, resident lanes)
-    runs after every chunk."""
+    runs after every chunk.
+
+    mesh: a ("data",) mesh of more than one device counts on its devices
+    instead of ``device``, each chunk padded to the chunk length and dealt
+    round-robin (count/mesh_runs.py); the key_filter path, host-driven,
+    ignores it, as jasper_tpu's does."""
     if (on_full is None and on_full_run is None) != (n_slots is None):
         raise ValueError("n_slots goes with on_full or on_full_run")
     paths = list(paths)
@@ -251,10 +263,13 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
         cap = 1 << max(14, (max(est, 4 * k) - 1).bit_length())
         chunk_len = min(chunk_len, cap)
     n_windows = chunk_len - k + 1
-    acc = accumulator if accumulator is not None else RunAccumulator(
-        unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
     chunks = (iter(codes_source) if codes_source is not None
               else _prefetch(parse_chunks(paths, k, chunk_len, min_qual_char)))
+    if mesh is not None and key_filter is None and mesh.shape["data"] > 1:
+        return _count_reads_mesh(chunks, k, chunk_len, mesh, canonical, progress,
+                                 on_full, on_full_run, n_slots, partition, codes_sink)
+    acc = accumulator if accumulator is not None else RunAccumulator(
+        unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
     n_chunks = 0
     for codes, fill in chunks:
         if codes_sink is not None:
@@ -278,6 +293,48 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
         n_chunks += 1
         if progress is not None:
             progress(n_chunks, acc.n_resident_lanes())
+    return acc
+
+
+def _count_reads_mesh(chunks, k: int, chunk_len: int, mesh, canonical: bool, progress,
+                      on_full, on_full_run, n_slots, partition, codes_sink):
+    """count_reads over the mesh's "data" devices (jasper_tpu's
+    _count_reads_mesh): groups of D chunks, each on its own device's ladder;
+    a --disk dump or an eviction first stages the group so far, and
+    counting goes on in fresh ladders."""
+    n_windows = chunk_len - k + 1
+    acc = MeshRunAccumulator(mesh, unit=max(1 << 14, n_windows // 8),
+                             stage_lanes=8 * n_windows)
+
+    def extract(codes, k):
+        return extract_windows(codes, k, canonical=canonical, partition=partition)
+
+    group: list[np.ndarray] = []
+    n_chunks = 0
+    for codes, fill in chunks:
+        if codes_sink is not None:
+            codes_sink.append((codes, fill))
+        if on_full is not None and acc.n_resident_lanes() > n_slots:
+            if group:
+                push_group(acc, group, chunk_len, k, extract)
+                group = []
+            on_full(_finish_to_table(acc, k)[0])
+            acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
+        if on_full_run is not None and acc.n_settled_lanes() > n_slots:
+            if group:
+                push_group(acc, group, chunk_len, k, extract)
+                group = []
+            on_full_run(acc)
+            acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
+        group.append(codes)
+        n_chunks += 1
+        if len(group) == acc.D:
+            push_group(acc, group, chunk_len, k, extract)
+            group = []
+        if progress is not None:
+            progress(n_chunks, acc.n_resident_lanes())
+    if group:
+        push_group(acc, group, chunk_len, k, extract)
     return acc
 
 
@@ -378,9 +435,9 @@ def pull_level_records(h, keys, counts):
 
 def start_all_level_pulls(acc):
     """Flush the ladder's stage and start a pull of every level, emptying
-    the ladder; returns the thunks, in level order."""
-    acc.flush_stage()
-    return [start_level_pull(*acc.levels.pop(j)) for j in sorted(acc.levels)]
+    the ladder (a mesh ladder's levels one per device); returns the thunks,
+    in level order."""
+    return [start_level_pull(*run) for run in acc.pop_level_runs()]
 
 
 def pull_all_levels(acc):
@@ -468,7 +525,7 @@ def _host_finish_from_parts(parts, k: int, device, _log):
 def count_reads_to_host(paths: Iterable[str], k: int, device,
                         hash_size_hint: int | None = None,
                         chunk_len: int = 1 << 23, tlog=None,
-                        scale_finish_lanes: int | None = None):
+                        scale_finish_lanes: int | None = None, mesh=None):
     """Driver counting entry (jasper_tpu's count_reads_to_host with
     return_device_table=True): count the reads on ``device`` and land the
     distinct set on the host. Returns (host_table, keys uint32 [N, W],
@@ -482,7 +539,12 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
     JT_SCALE_FINISH_LANES, else finish_budget_lanes of the card; past it
     the estimate picks P hash partitions (JT_COUNT_PARTITIONS overrides),
     and the partition resident budget the G passes (JT_COUNT_GROUPS). The
-    module docstring gives the branches."""
+    module docstring gives the branches.
+
+    mesh: a ("data",) mesh counts on its devices, ``device`` (its first,
+    where the ladders fold) still sizing the budgets as jasper_tpu's one
+    chip budget does; it skips the grouped partitioned passes and runs the
+    P-pass filter over the mesh instead (jasper_tpu's routing)."""
     paths = list(paths)
     device = torch.device(device)
 
@@ -503,7 +565,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
         while est // P > budget and P < 16:
             P *= 2
     seekable = all(isinstance(q, str) for q in paths)
-    if P > 1:
+    if P > 1 and mesh is None:
         G = _env_pow2("JT_COUNT_GROUPS")
         if G is not None and P % G:
             raise ValueError(f"JT_COUNT_GROUPS={G} must divide the {P} partitions")
@@ -528,7 +590,11 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
             if not seekable:
                 raise
             _log("count: partition slice overflow — redoing with the P-pass filter")
-        return _count_partitioned(paths, k, device, P, chunk_len, budget, _log)
+    if P > 1 and seekable:
+        if mesh is not None:
+            _log(f"count: {P} hash partitions in {P} passes over a "
+                 f"{mesh.shape['data']}-device mesh")
+        return _count_partitioned(paths, k, device, P, chunk_len, budget, _log, mesh)
 
     evicted: list = []
     pending: list = []
@@ -545,7 +611,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
              f"{sum(len(s[0]) for s in evicted)} records landed)")
 
     acc = count_reads(paths, k, device, n_slots=max(2 * budget, 1024),
-                      chunk_len=chunk_len, on_full_run=_evict)
+                      chunk_len=chunk_len, on_full_run=_evict, mesh=mesh)
     resident = acc.n_resident_lanes()
     _log(f"count: device counting done ({resident} resident lanes)")
     _materialize_pending()
@@ -570,7 +636,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
 
 
 def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
-                       budget: int, _log):
+                       budget: int, _log, mesh=None):
     """P passes over the reads, pass p counting partition p alone through
     the extraction filter (no slice capacity): the fallback after a
     PartitionSliceOverflow. The parsed code chunks of pass 0 are kept in
@@ -602,7 +668,7 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
             paths, k, device, n_slots=budget, chunk_len=chunk_len,
             on_full_run=_valve, partition=(p, P),
             codes_sink=codes_cache if use_cache and p == 0 else None,
-            codes_source=codes_cache if use_cache and p > 0 else None)
+            codes_source=codes_cache if use_cache and p > 0 else None, mesh=mesh)
         _materialize_prev()  # the previous pass's pulls have landed by now
         thunks = start_all_level_pulls(acc)
         thunks.extend((lambda s=s: s) for s in valve_streams)

@@ -345,6 +345,18 @@ class RunAccumulator:
                 return
             h, keys, counts, n_act = self._merge(self.levels.pop(j), run)
 
+    def push_uncompacted(self, h, keys, counts):
+        """Add a run whose dead lanes may be interspersed (jasper_tpu's
+        push_uncompacted, the mesh ladders' fold): its size class comes from
+        its lane count, and the first merge compacts it."""
+        self.push(h, keys, counts, h.shape[0])
+
+    def pop_level_runs(self) -> list[tuple]:
+        """Flush the stage and empty the ladder: its level runs, in level
+        order."""
+        self.flush_stage()
+        return [self.levels.pop(j) for j in sorted(self.levels)]
+
     def n_resident_lanes(self) -> int:
         return sum(r[0].shape[0] for r in self.levels.values()) + self._staged
 

@@ -13,12 +13,13 @@
 //   out    uint32 [B] counts (0 = absent).
 //
 // Per lane: h = murmur3-32 over the W words (ops/hashing.py:mix32), home
-// bucket = mulhi(h, n_buckets), then probe offsets 0, 1, ..., PAD_BUCKETS+1
-// with the row clamped to n_buckets + PAD_BUCKETS - 1. The first row with
-// a matching occupied slot answers the sum of its matching slots' counts
-// (mod 2^32, as the plain twin sums them); the first row with an empty
-// slot answers 0 (the insert invariant: a stored key's chain is all-full);
-// a lane still pending after the last offset answers 0.
+// bucket = mulhi(h << owner_bits, n_buckets) (owner_bits 0 but on a shard),
+// then probe offsets 0, 1, ..., PAD_BUCKETS+1 with the row clamped to
+// n_buckets + PAD_BUCKETS - 1. The first row with a matching occupied slot
+// answers the sum of its matching slots' counts (mod 2^32, as the plain
+// twin sums them); the first row with an empty slot answers 0 (the insert
+// invariant: a stored key's chain is all-full); a lane still pending after
+// the last offset answers 0.
 //
 // What bounds it on Hopper: bytes. Each probe reads one random 256-byte row
 // of a table far larger than the 50 MB L2 (1.24 GB at the 20 Mbp
@@ -64,6 +65,18 @@
 // compare compiled in: the unranged instantiation is unchanged. Its bound
 // is the keys, flags and counts of every lane plus the rows of the
 // in-range lanes, so with P slices about 1/P of a warp's lanes fetch rows.
+//
+// Owner bits (owner_bits, both entries) replace lookup_kmers_pallas's and
+// kmer_table.lookup_kmers's owner_bits (pallas_probe.py:142-153,
+// kmer_table.py:288-317): a shard of a hash-sharded table
+// (parallel/sharded_table.py) owns the keys whose top owner_bits hash bits
+// name it, so its home is taken from the bits after them,
+// mulhi(h << owner_bits, n) (ops/hashing.py:home_of). 0 <= owner_bits < 32:
+// the wrapper refuses 32 and more, where the shift is undefined. The shift
+// is a template flag (kOwner) like the range compare, and the entries pick
+// the instantiation without it when owner_bits is 0: with the shift at run
+// time the unsharded kernel at k=37 ran 1.2-2.6% slower than before it, in
+// turns on an H100 (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,14 +123,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int W, bool kRanged>
+template <int W, bool kRanged, bool kOwner>
 __global__ void __launch_bounds__(kWarps * 32)
     probe_chain_kernel(const uint32_t* __restrict__ tab,
                        const uint32_t* __restrict__ keys,
                        const uint8_t* __restrict__ valid,
                        uint32_t* __restrict__ out, int64_t B,
                        uint32_t n_buckets, uint32_t n_global, uint32_t b0,
-                       int S) {
+                       uint32_t owner_bits, int S) {
   __shared__ __align__(16) uint32_t rows[kWarps][32][kRowU32];
   const int t = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
@@ -130,7 +143,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
   for (int j = 0; j < W; ++j) kw[j] = in ? __ldg(keys + lane * W + j) : 0u;
   bool pending = in && __ldg(valid + lane) != 0;
-  const uint32_t h = mix32<W>(kw);
+  // on a shard: the hash after the shard-owner bits (owner_bits < 32)
+  const uint32_t h = kOwner ? mix32<W>(kw) << owner_bits : mix32<W>(kw);
   uint32_t home;
   if constexpr (kRanged) {
     // n_buckets is the slice's; the home is taken over the whole table
@@ -193,17 +207,17 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (in) out[lane] = result;
 }
 
-template <int W, bool kRanged>
+template <int W, bool kRanged, bool kOwner>
 cudaError_t launch(const uint32_t* tab, const uint32_t* keys,
                    const uint8_t* valid, uint32_t* out, int64_t B,
-                   uint32_t n_buckets, uint32_t n_global, uint32_t b0, int S,
-                   cudaStream_t stream) {
+                   uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+                   uint32_t owner_bits, int S, cudaStream_t stream) {
   // shared memory before L1: the rows bypass L1, and more resident blocks
   // keep more rows in flight
   static bool carved = false;
   if (!carved) {
     const cudaError_t err = cudaFuncSetAttribute(
-        probe_chain_kernel<W, kRanged>,
+        probe_chain_kernel<W, kRanged, kOwner>,
         cudaFuncAttributePreferredSharedMemoryCarveout,
         cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
@@ -211,33 +225,45 @@ cudaError_t launch(const uint32_t* tab, const uint32_t* keys,
   }
   constexpr int64_t kLanesPerBlock = kWarps * 32;
   const int64_t blocks = (B + kLanesPerBlock - 1) / kLanesPerBlock;
-  probe_chain_kernel<W, kRanged>
+  probe_chain_kernel<W, kRanged, kOwner>
       <<<static_cast<unsigned>(blocks), kWarps * 32, 0, stream>>>(
-          tab, keys, valid, out, B, n_buckets, n_global, b0, S);
+          tab, keys, valid, out, B, n_buckets, n_global, b0, owner_bits, S);
   return cudaGetLastError();
 }
 
-template <bool kRanged>
-int dispatch(const void* tab, const void* keys, const void* valid, void* out,
-             int64_t B, uint32_t n_buckets, uint32_t n_global, uint32_t b0,
-             int W, int S, int device, void* stream) {
+template <bool kRanged, bool kOwner>
+int dispatch_w(const void* tab, const void* keys, const void* valid, void* out,
+               int64_t B, uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+               uint32_t owner_bits, int W, int S, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0) return 0;
-  if (S < 1 || S > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || S > 32 || owner_bits > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* t = static_cast<const uint32_t*>(tab);
   auto* k = static_cast<const uint32_t*>(keys);
   auto* v = static_cast<const uint8_t*>(valid);
   auto* o = static_cast<uint32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 1: err = launch<1, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
-    case 2: err = launch<2, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
-    case 3: err = launch<3, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
-    case 4: err = launch<4, kRanged>(t, k, v, o, B, n_buckets, n_global, b0, S, st); break;
+    case 1: err = launch<1, kRanged, kOwner>(t, k, v, o, B, n_buckets, n_global, b0, owner_bits, S, st); break;
+    case 2: err = launch<2, kRanged, kOwner>(t, k, v, o, B, n_buckets, n_global, b0, owner_bits, S, st); break;
+    case 3: err = launch<3, kRanged, kOwner>(t, k, v, o, B, n_buckets, n_global, b0, owner_bits, S, st); break;
+    case 4: err = launch<4, kRanged, kOwner>(t, k, v, o, B, n_buckets, n_global, b0, owner_bits, S, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+template <bool kRanged>
+int dispatch(const void* tab, const void* keys, const void* valid, void* out,
+             int64_t B, uint32_t n_buckets, uint32_t n_global, uint32_t b0,
+             uint32_t owner_bits, int W, int S, int device, void* stream) {
+  return owner_bits
+      ? dispatch_w<kRanged, true>(tab, keys, valid, out, B, n_buckets, n_global,
+                                  b0, owner_bits, W, S, device, stream)
+      : dispatch_w<kRanged, false>(tab, keys, valid, out, B, n_buckets,
+                                   n_global, b0, 0u, W, S, device, stream);
 }
 
 }  // namespace
@@ -245,13 +271,14 @@ int dispatch(const void* tab, const void* keys, const void* valid, void* out,
 extern "C" {
 
 // Launches on `stream` without synchronising; returns the launch's
-// cudaError_t (0 = launched). W must be 1..4 (k <= 64) and S <= 32; the
-// wrapper checks the rest.
+// cudaError_t (0 = launched). W must be 1..4 (k <= 64), S <= 32 and
+// owner_bits <= 31; the wrapper checks the rest.
 int jt_probe_lookup(const void* tab, const void* keys, const void* valid,
-                    void* out, int64_t B, uint32_t n_buckets, int W, int S,
-                    int device, void* stream) {
-  return dispatch<false>(tab, keys, valid, out, B, n_buckets, 0u, 0u, W, S,
-                         device, stream);
+                    void* out, int64_t B, uint32_t n_buckets,
+                    uint32_t owner_bits, int W, int S, int device,
+                    void* stream) {
+  return dispatch<false>(tab, keys, valid, out, B, n_buckets, 0u, 0u,
+                         owner_bits, W, S, device, stream);
 }
 
 // The ranged lookup: `tab` holds buckets [b0, b0 + n_buckets) of a table
@@ -259,9 +286,10 @@ int jt_probe_lookup(const void* tab, const void* keys, const void* valid,
 int jt_probe_lookup_ranged(const void* tab, const void* keys,
                            const void* valid, void* out, int64_t B,
                            uint32_t n_buckets, uint32_t n_global, uint32_t b0,
-                           int W, int S, int device, void* stream) {
-  return dispatch<true>(tab, keys, valid, out, B, n_buckets, n_global, b0, W,
-                        S, device, stream);
+                           uint32_t owner_bits, int W, int S, int device,
+                           void* stream) {
+  return dispatch<true>(tab, keys, valid, out, B, n_buckets, n_global, b0,
+                        owner_bits, W, S, device, stream);
 }
 
 const char* jt_cuda_error_string(int err) {

@@ -1,6 +1,5 @@
 """Pipeline driver on the port: the jasper.sh equivalent (counterpart of
-jasper_tpu/pipeline/driver.py:358-651), reads -> polished FASTA on one
-device.
+jasper_tpu/pipeline/driver.py:358-651), reads -> polished FASTA.
 
 Same stages, checkpoint markers, artifacts and `[stage +...]` timing lines
 as jasper_tpu's driver:
@@ -16,15 +15,20 @@ as jasper_tpu's driver:
 The host helpers (batch sizing and splitting, the joins, the QV arithmetic,
 logging and markers) are a copy of jasper_tpu/pipeline/driver.py:44-273;
 the device parts are the port's own: counting (count/counter.py), the
-histogram (count/histogram.py), the scanner and the device polish engine. One process
-drives one device; jasper_tpu's multi-host barriers and batch sharding
-collapse to process 0 of 1 (the multi-GPU port is ROADMAP queue 1 item 12).
+histogram (count/histogram.py), the scanner and the device polish engine.
+A process counts and scans over every local device of ``device``'s kind
+(a data mesh for the count, the scanner's regime over them); under
+JASPER_TPU_COORDINATOR several processes share the work as jasper_tpu's
+hosts do (parallel/distributed.py): process 0 splits, counts, writes the
+histogram and joins, every process polishes its round-robin share of the
+batches, and they meet at jasper_tpu's barriers (split, db, histo,
+correct, join, qv).
 
-The scanner's regime (replicated or partitioned, parallel/scanner.py) is
-chosen before the histogram. On the `-j` path the histogram is read from the
-table's counts column block: on the device (K7) when the table is
-replicated, on the host table when it is partitioned, which then uploads
-nothing whole. Deliberate difference: jasper_tpu's `_host_histogram` reads
+The scanner's regime (replicated, sharded or partitioned,
+parallel/scanner.py) is chosen before the histogram. On the `-j` path the
+histogram is read from the table's counts column block: on the device (K7)
+when the table is replicated, on the host table otherwise, which then
+uploads nothing whole. Deliberate difference: jasper_tpu's `_host_histogram` reads
 slot-interleaved columns of word-major rows (ROADMAP F1).
 """
 
@@ -52,7 +56,19 @@ from jasper_tpu_torch.count.histogram import (
 )
 from jasper_tpu_torch.io.fastx import _open_text, read_fasta, total_file_bytes
 from jasper_tpu_torch.io.jf import load_jf_into_host_table, write_jf
-from jasper_tpu_torch.parallel.scanner import describe, plan_scan, select_scanner
+from jasper_tpu_torch.parallel.distributed import (
+    barrier,
+    leave_group_on_error,
+    maybe_init_distributed,
+    my_shard,
+)
+from jasper_tpu_torch.parallel.scanner import (
+    describe,
+    local_data_mesh,
+    plan_scan,
+    select_scanner,
+)
+from jasper_tpu_torch.parallel.sharded_table import local_devices
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
 from jasper_tpu_torch.polish.engine import CountSource
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
@@ -349,6 +365,7 @@ def _polish_batches_mp(batch_paths, host_table, k, thr, passes, threads, workdir
     _rm(npy)
 
 
+@leave_group_on_error
 def run_pipeline(
     assembly: str,
     reads: list[str] | None = None,
@@ -374,7 +391,15 @@ def run_pipeline(
     threads shapes the batch size as in the reference (sh:127-139); with
     cpu_workers=True and threads > 1 the batches are polished in that many
     CPU worker processes (the reference's xargs -P fan-out), which only a
-    run on the CPU may ask for: the workers polish on the CPU."""
+    run on the CPU may ask for: the workers polish on the CPU.
+
+    The count runs data-parallel over every device of ``device``'s kind in
+    this process (every card, or the one CPU) and the scanner's regime is
+    chosen over them (parallel/scanner.py). Under JASPER_TPU_COORDINATOR
+    (parallel/distributed.py) every process polishes its round-robin share
+    of the batches, and process 0 splits, counts, writes the histogram and
+    joins, at jasper_tpu's barriers; a process that raises leaves the
+    group, so the others fail at their next barrier."""
     from jasper_tpu_torch.polish.runner import polish_file
 
     if cpu_workers and torch.device(device).type != "cpu":
@@ -382,6 +407,7 @@ def run_pipeline(
             f"--cpu-workers polishes in CPU worker processes; it needs "
             f"--device cpu, not {device}")
     device = resolve_device(device)
+    proc_id, proc_count = maybe_init_distributed()
     stages: list[tuple[float, str]] = []
     t_start = time.perf_counter()
 
@@ -402,7 +428,8 @@ def run_pipeline(
     batch_size = compute_batch_size(assembly, threads, batch)
     log(f"Using BATCH SIZE {batch_size}")
 
-    if not os.path.exists(_marker(workdir, "split")):
+    # split (multi-process: process 0 writes the batch files)
+    if proc_id == 0 and not os.path.exists(_marker(workdir, "split")):
         log("Splitting query into batches for parallel execution")
         for old in os.listdir(workdir):
             if re.match(re.escape(query_fn) + r"\.batch\..*\.fa$", old):
@@ -410,6 +437,7 @@ def run_pipeline(
         split_batches(assembly, batch_size, workdir, query_fn)
         _rm(_marker(workdir, "correct"))
         _touch(_marker(workdir, "split"))
+    barrier("split")
     batch_paths = sorted(
         (
             os.path.join(workdir, p)
@@ -438,15 +466,21 @@ def run_pipeline(
                     "pair of quotation marks."
                 )
         jf_db = os.path.join(workdir, f"mer_counts{k}.jf")
-        if os.path.exists(jf_db) and os.path.getsize(jf_db) > 0:
+        if proc_id != 0:
+            barrier("db")  # process 0 counts; the shared filesystem serves the .jf
+        elif os.path.exists(jf_db) and os.path.getsize(jf_db) > 0:
             log(f"Using existing jellyfish database {jf_db}")
             _rm(_marker(workdir, "no_cat"))
         else:
             log(f"Creating jellyfish database {jf_db}")
             jf_size = total_file_bytes(reads) // 10
+            mesh = local_data_mesh(devices=local_devices(device))
+            if mesh is not None:
+                log(f"Counting data-parallel over {mesh.shape['data']} devices")
             stage("count: start (ingest + device counting)")
             host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
-                reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage)
+                reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage,
+                mesh=mesh)
             write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
             stage("count: histogram done")
 
@@ -466,11 +500,16 @@ def run_pipeline(
                 stage(f"count: background .jf write done "
                       f"({time.perf_counter() - t0:.1f}s thread time)")
 
-            db_writer = threading.Thread(target=_write_db, name="jf-write")
-            db_writer.start()
+            if proc_count > 1:  # the other processes load it after "db"
+                _write_db()
+            else:
+                db_writer = threading.Thread(target=_write_db, name="jf-write")
+                db_writer.start()
             del rkeys, rcounts
             _touch(_marker(workdir, "no_cat"))
             _touch(_marker(workdir, "histo"))
+        if proc_id == 0:
+            barrier("db")
 
     if host_table is None:
         log(f"Loading k-mer database {jf_db}")
@@ -482,14 +521,17 @@ def run_pipeline(
 
     from_count = dev_tab is not None
     # the scan regime, from the budget, before anything more is allocated;
-    # a partitioned scan streams the host table and needs no device copy
+    # a partitioned scan streams the host table and a sharded one builds its
+    # sub-tables from the host table's records: neither takes a device copy
     plan = plan_scan(host_table, device, dev_tab)
-    if plan.regime == "partitioned":
+    if plan.regime != "replicated":
         dev_tab = None
-    if (not os.path.exists(_marker(workdir, "histo"))
+    # histogram (multi-process: process 0 writes it)
+    if proc_id == 0 and (
+            not os.path.exists(_marker(workdir, "histo"))
             or not (os.path.exists(histo_csv) and os.path.getsize(histo_csv) > 0)):
         log("Computing K-mer histogram")
-        if plan.regime == "partitioned":
+        if plan.regime != "replicated":
             rows = histogram_rows_host(host_table.tab, k)
         else:
             if dev_tab is None:  # uploaded once: the scanner below takes it too
@@ -498,6 +540,7 @@ def run_pipeline(
         write_histogram(histo_csv, rows)
         _rm(_marker(workdir, "correct"))
         _touch(_marker(workdir, "histo"))
+    barrier("histo")
 
     # polish
     counts = scanner = None
@@ -529,7 +572,7 @@ def run_pipeline(
                 return DevicePolishEngine(c, kk, t, scanner=scanner)
 
             stage("polish: start")
-            for bp in batch_paths:
+            for bp in my_shard(batch_paths, proc_id, proc_count):
                 bn = os.path.basename(bp)
                 polish_file(
                     bp, counts, k, thr, passes,
@@ -542,13 +585,14 @@ def run_pipeline(
                     os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa"),
                 )
                 stage(f"polish: batch {bn} done")
+        barrier("correct")  # every process's batches done before the join
         _rm(_marker(workdir, "join"))
         _touch(_marker(workdir, "correct"))
 
-    # join
+    # join (multi-process: process 0 joins the shared outputs)
     polished = os.path.join(workdir, f"{query_fn}.polished.fasta")
     fixes_csv = os.path.join(workdir, f"{query_fn}.fixes.csv")
-    if not os.path.exists(_marker(workdir, "join")):
+    if proc_id == 0 and not os.path.exists(_marker(workdir, "join")):
         log("Joining")
         stage("join: start")
         fixed_paths = [
@@ -569,17 +613,21 @@ def run_pipeline(
                 if re.match(fix_csv_re, p) or re.match(
                         re.escape(query_fn) + r"\.batch\.\d+\.fa$", p):
                     _rm(os.path.join(workdir, p))
+    barrier("join")  # the join is done before anyone reads its outputs
 
-    # QV
+    # QV: every process reads the shared helpers; process 0 deletes them
+    # once every process has read them
     err_b, tot_b = read_qv_helper(os.path.join(workdir, "0qValCalcHelper.csv"))
     err_a, tot_a = read_qv_helper(os.path.join(workdir, f"{passes}qValCalcHelper.csv"))
     q_before = qv_from_tallies(err_b, tot_b, k)
     q_after = qv_from_tallies(err_a, tot_a, k)
     log(f"Before Polishing: Q value = {q_before}")
     log(f"After Polishing: Q value = {q_after}")
-    for p in os.listdir(workdir):
-        if p.endswith("qValCalcHelper.csv"):
-            _rm(os.path.join(workdir, p))
+    barrier("qv")
+    if proc_id == 0:
+        for p in os.listdir(workdir):
+            if p.endswith("qValCalcHelper.csv"):
+                _rm(os.path.join(workdir, p))
     if db_writer is not None:
         t0 = time.perf_counter()
         db_writer.join()
@@ -600,4 +648,5 @@ def run_pipeline(
         "scan_table_from_count": (scanner is not None and from_count
                                   and scanner.regime == "replicated"),
         "stages": stages,
+        "process": (proc_id, proc_count),
     }

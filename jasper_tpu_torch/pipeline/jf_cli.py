@@ -16,7 +16,9 @@ outputs):
 The dispatcher mirrors the reference's (jellyfish-2.3.0
 sub_commands/jellyfish.cc:47-71). `count` runs on the card
 (count/counter.py: extraction, sorted runs and the table build on the
-device; `--device cpu` runs the same torch code on the host, for tests);
+device; data-parallel over every card when there are several, as
+jasper_tpu's over its local devices; `--device cpu` runs the same torch
+code on the host, for tests);
 asking for `cuda` without one is an error, never a silent CPU run. The
 other subcommands, and `bc`, are host code over the .jf and .bc files, as
 in jasper_tpu.
@@ -242,6 +244,9 @@ def cmd_count(argv) -> int:
         inputs = GeneratorManager(args.generator, args.Generators,
                                   shell=args.shell).streams()
 
+    from jasper_tpu_torch.parallel.scanner import local_data_mesh
+    from jasper_tpu_torch.parallel.sharded_table import local_devices
+
     acc = counter.count_reads(
         inputs,
         args.mer_len,
@@ -251,6 +256,7 @@ def cmd_count(argv) -> int:
         min_qual_char=args.min_qual_char,
         key_filter=key_filter,
         on_full=dump_intermediate if args.disk else None,
+        mesh=local_data_mesh(devices=local_devices(device)),
     )
 
     if intermediates:

@@ -26,7 +26,7 @@ from jasper_tpu_torch.polish.engine import (
     PolishEngine,
     _all_acgt,
 )
-from jasper_tpu_torch.polish.window import classify_tiled, scan_counts_tiled
+from jasper_tpu_torch.polish.window import classify_tiled, scan_counts, scan_counts_tiled
 
 
 class ContigScan:
@@ -58,25 +58,53 @@ class ContigScan:
 
 
 class DeviceScanner:
-    """Runs the device scan of one contig against the whole table on one
-    device (the replicated regime) and packages the flag arrays. ``tab``
-    is the table tensor on its device. ``seconds`` accumulates the wall
-    time of prepare()."""
+    """Runs the device scan of one contig against the whole table (the
+    replicated regime) and packages the flag arrays. ``tab`` is the table
+    tensor on its device. With a ("data",) ``mesh`` (parallel.scanner's
+    local_data_mesh) the windows are scanned data-parallel over its devices
+    a step of ``tile`` windows per device at a time (jasper_tpu's
+    _dp_scan_fn, K12), the table copied once to each distinct device
+    (repeated devices share one copy); the counts gather on ``tab``'s
+    device and are classified there. ``seconds`` accumulates the wall time
+    of prepare()."""
 
     regime = "replicated"
 
-    def __init__(self, tab, k: int, divisor: int = 50, tile: int = 1 << 22):
+    def __init__(self, tab, k: int, divisor: int = 50, tile: int = 1 << 22, mesh=None):
         self.tab = tab
         self.k = int(k)
         self.divisor = divisor
         self.tile = tile
+        self.mesh = mesh
         self.seconds = 0.0
+        self._tabs = {tab.device: tab}
+        for dev in [] if mesh is None else mesh.flat:
+            if dev not in self._tabs:
+                self._tabs[dev] = tab.to(dev)
+
+    def _scan_counts_mesh(self, codes):
+        """Counts of every window of ``codes`` (on tab's device), the
+        mesh's devices taking consecutive tiles of one step each."""
+        k, tile, devs = self.k, self.tile, self.mesh.flat
+        n = max(codes.shape[0] - k + 1, 0)
+        counts = torch.empty(n, dtype=torch.int32, device=codes.device)
+        for pos in range(0, n, len(devs) * tile):
+            for d, dev in enumerate(devs):
+                s = pos + d * tile
+                m = min(tile, n - s)
+                if m > 0:
+                    counts[s : s + m] = scan_counts(
+                        self._tabs[dev], codes[s : s + m + k - 1].to(dev), k).to(codes.device)
+        return counts
 
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:
         t0 = time.perf_counter()
         codes = torch.from_numpy(np.ascontiguousarray(encode(seq), dtype=np.uint8))
         codes = codes.to(self.tab.device)
-        counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
+        if self.mesh is None:
+            counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
+        else:
+            counts = self._scan_counts_mesh(codes)
         scan = ContigScan(*classify_tiled(codes, counts, solid_thre, self.k, self.tile,
                                           self.divisor))
         self.seconds += time.perf_counter() - t0
@@ -97,8 +125,8 @@ class DevicePolishEngine(PolishEngine):
                  divisor: int = 50, scanner=None):
         super().__init__(counts, k, solid_threshold, divisor)
         if scanner is None:
-            raise ValueError("DevicePolishEngine needs a scanner (DeviceScanner "
-                             "or PartitionedDeviceScanner)")
+            raise ValueError("DevicePolishEngine needs a scanner (DeviceScanner, "
+                             "ShardedDeviceScanner or PartitionedDeviceScanner)")
         self.scanner = scanner
         self.passes: list[dict] = []
 

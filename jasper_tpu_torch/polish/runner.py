@@ -162,7 +162,8 @@ def run(argv=None) -> PolishReport:
 
     t0 = time.perf_counter()
     # the driver's policy: replicated when the table fits the budget (one
-    # upload here), else partitioned (slices pushed per pass, none here)
+    # upload here), sharded over several cards when a shard fits, else
+    # partitioned (slices pushed per pass, none here)
     scanner = select_scanner(host_table, k, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

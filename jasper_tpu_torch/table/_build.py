@@ -82,14 +82,14 @@ def load() -> ctypes.CDLL:
         lib.jt_probe_lookup.restype = ctypes.c_int
         lib.jt_probe_lookup.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_uint32, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.jt_probe_lookup_ranged.restype = ctypes.c_int
         lib.jt_probe_lookup_ranged.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.jt_cuda_error_string.restype = ctypes.c_char_p
         lib.jt_cuda_error_string.argtypes = [ctypes.c_int]

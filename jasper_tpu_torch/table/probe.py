@@ -5,9 +5,13 @@ twins, and the dispatcher (counterpart of jasper_tpu/table/pallas_probe.py).
 ``kmer_table.lookup_kmers``: the count of each lane's key, 0 for absent keys
 and invalid lanes. With ``n_buckets_global`` and ``home_base`` it is the
 ranged lookup (kmer_table.py:302-321): ``tab`` is then a bucket-range slice
-of a larger table and lanes whose home lies outside it read 0. A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel, or raises —
-there is no fallback.
+of a larger table and lanes whose home lies outside it read 0. With
+``owner_bits`` (jasper_tpu's ``lookup_kmers(owner_bits=)`` and
+``lookup_kmers_pallas(owner_bits=)``) ``tab`` is one shard of a hash-sharded
+table: the home is taken from the hash after its top ``owner_bits`` bits,
+which name the shard (parallel/sharded_table.py). A CPU tensor takes the
+plain version; a CUDA tensor launches the kernel, or raises — there is no
+fallback.
 
 Tensors carry uint32 values as int32 bit patterns (table/kmer_table.py):
 ``tab`` int32 [n_buckets + PAD_BUCKETS, 64], ``keys`` int32 [B, W],
@@ -23,9 +27,11 @@ from jasper_tpu_torch.ops.hashing import M32, home_of, mix32
 from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32, slot_words_for
 
 # kernel launches since the last reset (the main-path proof in
-# chip_smoke.py): unranged, and ranged (a table slice)
+# chip_smoke.py): unranged on a whole table, ranged (a table slice), and
+# unranged on a shard of a hash-sharded table (owner_bits > 0)
 LAUNCHES = 0
 RANGED_LAUNCHES = 0
+OWNER_LAUNCHES = 0
 
 
 def _layout(tab: torch.Tensor, keys: torch.Tensor):
@@ -79,15 +85,23 @@ def _check_plain(tab, keys, name):
         raise ValueError(f"{name}: tab and keys must be int32 bits")
 
 
-def lookup_kmers_plain(tab, keys, valid):
+def _check_owner_bits(owner_bits: int) -> int:
+    """The shift of the kernel is defined below 32 bits only."""
+    if not 0 <= int(owner_bits) < 32:
+        raise ValueError(f"owner_bits {owner_bits} not in [0, 32)")
+    return int(owner_bits)
+
+
+def lookup_kmers_plain(tab, keys, valid, owner_bits: int = 0):
     """Plain torch twin of the kernel: kmer_table.lookup_kmers semantics."""
     _check_plain(tab, keys, "lookup_kmers_plain")
     n_buckets, _W, _S = _layout(tab, keys)
-    return _probe_chain_plain(tab, keys, valid, home_of(mix32(keys), n_buckets))
+    home = home_of(mix32(keys), n_buckets, _check_owner_bits(owner_bits))
+    return _probe_chain_plain(tab, keys, valid, home)
 
 
 def lookup_kmers_ranged_plain(tab, keys, valid, n_buckets_global: int,
-                              home_base: int):
+                              home_base: int, owner_bits: int = 0):
     """Plain torch twin of the ranged kernel: ``tab`` holds buckets
     [home_base, home_base + n_local) of a table of ``n_buckets_global``
     buckets plus the next PAD_BUCKETS rows. A lane's home is taken over the
@@ -96,7 +110,7 @@ def lookup_kmers_ranged_plain(tab, keys, valid, n_buckets_global: int,
     uint32, so the range compares are unsigned in meaning."""
     _check_plain(tab, keys, "lookup_kmers_ranged_plain")
     n_local, _W, _S = _layout(tab, keys)
-    hg = home_of(mix32(keys), int(n_buckets_global))
+    hg = home_of(mix32(keys), int(n_buckets_global), _check_owner_bits(owner_bits))
     base = int(home_base)
     in_range = (hg >= base) & (hg < base + n_local)
     home = torch.where(in_range, hg - base, 0)
@@ -157,40 +171,49 @@ def _launch(fn, tab, keys, valid, *args):
     return out, True
 
 
-def lookup_kmers_cuda(tab, keys, valid):
+def lookup_kmers_cuda(tab, keys, valid, owner_bits: int = 0):
     """Launch csrc/probe.cu on the current stream (no synchronise)."""
-    global LAUNCHES
+    global LAUNCHES, OWNER_LAUNCHES
+    owner_bits = _check_owner_bits(owner_bits)
     n_buckets, W, S = _check_cuda(tab, keys, valid)
-    out, launched = _launch("jt_probe_lookup", tab, keys, valid, n_buckets, W, S)
-    LAUNCHES += launched
+    out, launched = _launch("jt_probe_lookup", tab, keys, valid, n_buckets,
+                            owner_bits, W, S)
+    if owner_bits:
+        OWNER_LAUNCHES += launched
+    else:
+        LAUNCHES += launched
     return out
 
 
 def lookup_kmers_ranged_cuda(tab, keys, valid, n_buckets_global: int,
-                             home_base: int):
+                             home_base: int, owner_bits: int = 0):
     """Launch csrc/probe.cu's ranged entry on the current stream."""
     global RANGED_LAUNCHES
+    owner_bits = _check_owner_bits(owner_bits)
     n_local, W, S = _check_cuda(tab, keys, valid)
     if not (1 <= n_buckets_global < 1 << 32 and 0 <= home_base < 1 << 32):
         raise ValueError(f"n_buckets_global {n_buckets_global} / home_base "
                          f"{home_base} out of range")
     out, launched = _launch("jt_probe_lookup_ranged", tab, keys, valid, n_local,
-                            int(n_buckets_global), int(home_base), W, S)
+                            int(n_buckets_global), int(home_base), owner_bits, W, S)
     RANGED_LAUNCHES += launched
     return out
 
 
 def lookup_kmers(tab, keys, valid, n_buckets_global: int | None = None,
-                 home_base: int | None = None):
+                 home_base: int | None = None, owner_bits: int = 0):
     """Counts [B] (int32 bits) of keys [B, W] (int32 bits) in ``tab``; 0 for
     absent keys and invalid lanes. With ``n_buckets_global`` and
     ``home_base`` (both or neither), ``tab`` is a bucket-range slice and
-    lanes homed outside it read 0. CPU tensors -> plain; else the kernel."""
+    lanes homed outside it read 0. ``owner_bits`` (0..31) hash bits name a
+    shard and are skipped before the home bits. CPU tensors -> plain; else
+    the kernel."""
     if (n_buckets_global is None) != (home_base is None):
         raise ValueError("lookup_kmers: give n_buckets_global and home_base "
                          "together")
     cpu = tab.device.type == "cpu"
     if n_buckets_global is None:
-        return (lookup_kmers_plain if cpu else lookup_kmers_cuda)(tab, keys, valid)
+        fn = lookup_kmers_plain if cpu else lookup_kmers_cuda
+        return fn(tab, keys, valid, owner_bits)
     fn = lookup_kmers_ranged_plain if cpu else lookup_kmers_ranged_cuda
-    return fn(tab, keys, valid, n_buckets_global, home_base)
+    return fn(tab, keys, valid, n_buckets_global, home_base, owner_bits)

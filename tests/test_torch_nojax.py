@@ -4,7 +4,9 @@ process cannot: tests/conftest.py imports jax), then drives
 ``jasper_tpu_torch.polish.runner``, the pipeline CLI
 (``jasper_tpu_torch.pipeline.cli``, the partitioned scan included),
 bin/jellyfish-tpu-torch's count and dump, ``entry()`` and the claim-round
-insert on the CPU end to end."""
+insert, and the multi-device paths (``dryrun_multichip``: the sharded
+table, its scanner, mesh counting; the process group) on the CPU end to
+end."""
 
 import os
 import subprocess
@@ -151,6 +153,38 @@ def test_entry_and_insert_run_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "NOJAX_TABLE_OK" in r.stdout
+
+
+MULTI_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
+    from jasper_tpu_torch.entry import dryrun_multichip
+    from jasper_tpu_torch.parallel.distributed import barrier, maybe_init_distributed
+    out = dryrun_multichip(4, "cpu")
+    assert out["scanner"] == "sharded" and out["table_shards"] == 4, out
+    assert maybe_init_distributed() == (0, 1)
+    barrier("single")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
+    assert not loaded, loaded
+    print("NOJAX_MULTI_OK")
+""")
+
+
+def test_multi_device_paths_run_without_jax(tmp_path):
+    """dryrun_multichip over 4 virtual CPU shards (the sharded insert,
+    scan and lookup, the sharded and partitioned scanners, counting over a
+    data mesh) and the single-process group, with jax and jasper_tpu
+    blocked."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JASPER_TPU_COORDINATOR")}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", MULTI_SCRIPT], cwd=str(tmp_path),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "NOJAX_MULTI_OK" in r.stdout
 
 
 def _pipeline_without_jax(tmp_path, extra_env):

@@ -79,6 +79,18 @@ def test_port_imports_nothing_of_jasper_tpu():
     assert not bad, bad
 
 
+def test_scan_covers_the_multi_device_modules():
+    """The scan reaches the sharded table, the mesh ladders, the process
+    group, the scanners and the entry points, and they import nothing of
+    jasper_tpu (the JAX package's counterparts import jax at load)."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    new = {os.path.join("jasper_tpu_torch", *m.split("/")) for m in (
+        "parallel/sharded_table.py", "parallel/distributed.py", "parallel/scanner.py",
+        "count/mesh_runs.py", "entry.py", "pipeline/driver.py", "pipeline/jf_cli.py")}
+    assert new <= sources, new - sources
+    assert not [m for m in new if jasper_tpu_imports(os.path.join(REPO, m))]
+
+
 @pytest.mark.parametrize("snippet,hit", [
     ("import jasper_tpu", True),
     ("import jasper_tpu.ops.codes as c", True),
