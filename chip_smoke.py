@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
-    python3 chip_smoke.py [--genome-mbp 5] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16] [--seed 7]
+    python3 chip_smoke.py [--genome-mbp 2] [--race-kb 20000] [--big-kb 100000]
+                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17] [--seed 7]
                           [--workdir DIR] [--ab-probe OTHER_probe.cu]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
@@ -26,7 +26,7 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   5. counting: the race reads (tools/race_reference.make_data, 40x of 250 bp,
      --seed; made in a child process beside phases 3-4); the port's
      count_reads_to_host counts their first
-     40 Mbp on the card, held against an independent numpy count (distinct
+     20 Mbp on the card, held against an independent numpy count (distinct
      keys and counts equal), the device-built table (K5) against the native
      host-built one and K7 against the counts' histogram;
   6. the main path, the driver from reads: jasper_tpu_torch.pipeline.cli
@@ -121,7 +121,7 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      table bytes equal to phase 6's. Reports its seconds against phase 6's
      count;
  15. two processes, beside phase 9's child: run_pipeline from reads at
-     k=25 on phase 16's race data (make_data(2000, 40)), its draft cut into
+     k=25 on phase 16's race data (make_data(1000, 40)), its draft cut into
      8 contigs (4 batches), once in this process and once in two child
      processes on the card joined through JASPER_TPU_COORDINATOR on
      localhost (gloo; process 0 counts, the other waits at the "db"
@@ -130,11 +130,23 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      the child, from 0), and the polished FASTA and
      fixes.csv equal the single run's byte for byte;
  16. k=37 end to end (ROADMAP F5), beside phase 9's child: the driver from
-     reads at k=37 on make_data(2000, 40) (made in a child beside phases
+     reads at k=37 on make_data(1000, 40) (made in a child beside phases
      3-4), -b 25000000 -d. Gates: the .jf's records equal an independent
      numpy count of the reads (two words a k-mer), the probe launched, and
      the polished FASTA and fixes.csv equal the host walk (PolishEngine, no
-     device scan) on the same table and batch, joined as the driver joins.
+     device scan) on the same table and batch, joined as the driver joins;
+ 17. the tools (jasper_tpu_torch/tools/), after phase 4 and before phase
+     9's child starts, each at jasper_tpu's default sizes in its own child
+     process (python -m jasper_tpu_torch.tools.<name> --device cuda):
+     profile_count (32 M bases at k=37 in 2^22-window chunks) in its
+     insert mode and its three --runs modes, profile_polish (2000 kb,
+     k=25, a substitution every 4000 bases) and layout_sweep (B = 2^20).
+     Gates: no insert leaves a key pending, the --runs modes give the same
+     distinct keys, profile_polish launched K1, fixed the 499 substitutions
+     and its clean pass fixed nothing, every sweep row took a positive time
+     and the sweep's K1 row equals its plain twin bit for bit. Reports the
+     tools' JSON (ms per chunk, bases/s, prepare / pass / clean-pass ms,
+     each primitive's ms, K1's ms, bound and share) and the seconds.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -158,6 +170,15 @@ import time
 
 import numpy as np
 
+# outside a checkout of the repository this import fails: no result
+from jasper_tpu_torch.tools.measure import (
+    HBM_BYTES_PER_S,
+    bound,
+    cuda_ms,
+    probe_bound,
+    probed_rows,
+)
+
 RACE_RECORDS = 55_718_396  # race20 distinct 25-mers (race_artifacts/race20_tpu_run.log:8)
 RACE_KB = 20_000  # race20 genome (tools/race_reference.py make_data)
 RACE_QV = ("36.14958", "71.42679")  # race_artifacts/race20_result_r5.json
@@ -169,11 +190,6 @@ BIG_HISTO = os.path.join("race_artifacts", "race100_histo_tpu.txt")
 HERE = os.path.dirname(os.path.abspath(__file__))
 LANES = 1 << 22  # probe lanes per comparison = the scan tile
 M32 = 0xFFFFFFFF
-# NVIDIA H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue on
-# the CUDA cores, 64 INT32 lanes per SM (NVIDIA's H100 architecture white
-# paper) x 132 SMs x 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 RANGED_DESIGN = ("the bucket probe's warp design with the range compare compiled in "
                  "(a template flag): the home is taken over the whole table, lanes "
                  "homed outside the slice fetch no row; ms, bound and plain_ms are "
@@ -212,72 +228,6 @@ def distinct_keys(rng, k: int, n: int, salt: int) -> np.ndarray:
     if top < 32:
         keys[:, W - 1] &= np.uint32((1 << top) - 1)
     return keys
-
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def probed_rows(tab, keys, valid, n_global=None, b0=None, owner_bits: int = 0) -> int:
-    """Rows the probe chain reads for these inputs: every valid lane's home
-    row, and the next row of every lane still pending (the plain twin's
-    rounds, counted). Ranged (``tab`` a slice of a table of ``n_global``
-    buckets from bucket ``b0``): only the lanes homed in the slice. On a
-    shard of a sharded table the home skips ``owner_bits`` hash bits."""
-    import torch
-
-    from jasper_tpu_torch.ops.hashing import home_of, mix32
-    from jasper_tpu_torch.table import probe
-    from jasper_tpu_torch.table.layout import PAD_BUCKETS
-
-    n_buckets = tab.shape[0] - PAD_BUCKETS
-    if n_global is None:
-        home = home_of(mix32(keys), n_buckets, owner_bits)
-    else:
-        home = home_of(mix32(keys), n_global) - b0
-        valid = valid & (home >= 0) & (home < n_buckets)
-    lanes = torch.nonzero(valid, as_tuple=True)[0]
-    rows = 0
-    for off in range(PAD_BUCKETS + 2):
-        if lanes.numel() == 0:
-            break
-        rows += lanes.numel()
-        b = torch.clamp(home[lanes] + off, max=n_buckets + PAD_BUCKETS - 1)
-        _c, hit, empty = probe.probe_rows_plain(tab, b, keys[lanes])
-        lanes = lanes[~hit & ~empty]
-    return rows
-
-
-def probe_bound(tab, keys, valid, calls: int = 1, rows=None, owner_bits: int = 0) -> dict:
-    """The least time the card could take for ``calls`` probe calls on these
-    inputs (each one slice of a partitioned table when ``calls`` > 1, its
-    probed rows summed in ``rows``): each lane's key words, valid flag and
-    4-byte count per call, and each probed 256-byte row, moved once at
-    HBM_BYTES_PER_S; against the hash (~8 int32 ops a word + 10 for the
-    finish) per call and the slot compares (W + 2 a slot of a probed row)
-    at INT32_OPS_PER_S."""
-    B, W = keys.shape
-    S = 64 // (W + 1)
-    if rows is None:
-        rows = probed_rows(tab, keys, valid, owner_bits=owner_bits)
-    nbytes = calls * B * (4 * W + 1 + 4) + rows * 256
-    ops = calls * B * (8 * W + 10) + rows * S * (W + 2)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return {"probed_rows": rows, "bound_bytes": nbytes, "bound_ops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def compare_probe(tab, keys, valid, iters=(20, 5), owner_bits: int = 0) -> dict:
@@ -849,7 +799,7 @@ def oracle_windows(fastq: str, k: int):
     return fwd, rc, valid
 
 
-HEAD_READS = 160_000  # phase 5: the first 40 Mbp of the race reads
+HEAD_READS = 80_000  # phase 5: the first 20 Mbp of the race reads
 JF_HEAD_READS = 80_000  # phase 9's filtered routes: the first 20 Mbp
 
 
@@ -867,7 +817,7 @@ def reads_head(reads: str, n_reads: int = HEAD_READS) -> str:
 def phase_count(reads: str, device, card: str, k: int = 25,
                 n_reads: int = HEAD_READS) -> dict:
     """Phase 5: the port's count_reads_to_host on the card over the first
-    ~40 Mbp of the race reads, against oracle_counts; the device-built table
+    ~20 Mbp of the race reads, against oracle_counts; the device-built table
     (K5) against the native host-built one, byte for byte; K7 against the
     histogram of the counts."""
     import torch
@@ -1601,6 +1551,60 @@ def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25)
     return out
 
 
+# -- phase 17: the tools ----------------------------------------------------
+
+# each tool at jasper_tpu's default sizes, in a child process on the card
+TOOL_RUNS = {  # report key: (tool, arguments)
+    "profile_count": ("profile_count", []),
+    "profile_count_runs": ("profile_count", ["--runs"]),
+    "profile_count_runs_fast": ("profile_count", ["--runs", "--fast"]),
+    "profile_count_runs_stage": ("profile_count", ["--runs", "--stage"]),
+    "profile_polish": ("profile_polish", []),
+    "layout_sweep": ("layout_sweep", []),
+}
+TOOL_INJECTED = 499  # profile_polish's substitutions at 2000 kb, every 4000 bases
+
+
+def run_tool(name: str, args: list[str]) -> dict:
+    """``python -m jasper_tpu_torch.tools.<name> <args> --device cuda`` in a
+    child process; fatal on a non-zero exit -> the JSON of its last line
+    and its seconds."""
+    cmd = [sys.executable, "-m", f"jasper_tpu_torch.tools.{name}", *args, "--device", "cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    for line in r.stderr.splitlines()[-12:]:
+        log(f"{name} {' '.join(args)}: {line}")
+    if r.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[2:])} exited with {r.returncode}:\n"
+                           f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    return {**json.loads(r.stdout.strip().splitlines()[-1]), "child_s": secs}
+
+
+def phase_tools(card: str) -> dict:
+    """Phase 17: the tools on the card at jasper_tpu's default sizes, each
+    in its own child process (TOOL_RUNS), one after another. Each child
+    gates itself and exits non-zero on a failure: profile_count when an
+    insert leaves a key pending; profile_polish unless K1 launched (its
+    count in the child, from 0), every substitution was fixed and the
+    clean pass fixed nothing; the sweep when a row took no time or its K1
+    row differs from the plain twin bit for bit, misses a present key or
+    was not launched. Here: the three --runs modes give the same distinct
+    keys, and profile_polish fixed the 499 substitutions of its default
+    sizes."""
+    t0 = time.perf_counter()
+    res = {key: run_tool(name, args) for key, (name, args) in TOOL_RUNS.items()}
+    distinct = {m: res[f"profile_count_runs{m}"]["distinct_keys"] for m in ("", "_fast", "_stage")}
+    if len(set(distinct.values())) != 1:
+        raise AssertionError(f"profile_count --runs modes disagree: {distinct}")
+    if res["profile_polish"]["fixes"] != TOOL_INJECTED:
+        raise AssertionError(f"profile_polish: {res['profile_polish']['fixes']} fixes, "
+                             f"not {TOOL_INJECTED}")
+    out = {"seconds": time.perf_counter() - t0, "card": card, **res}
+    log("tools " + json.dumps(out))
+    return out
+
+
 # -- phase 9: the jellyfish entry point --------------------------------------
 
 
@@ -1799,7 +1803,7 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
 
 
 SHARDS = 4  # phase 13: race20's table over this many shards of the one card
-F5_KB = 2_000  # phase 16: the k=37 slice of the race configuration
+F5_KB = 1_000  # phase 16: the k=37 slice of the race configuration
 
 
 def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -> dict:
@@ -1861,12 +1865,27 @@ def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -
     if dp_launches <= 0:
         raise AssertionError(f"data-parallel scan: {dp_launches} probe launches")
     ob = _owner_bits(SHARDS)
-    keys, valid = canonical_windows_fast(torch.from_numpy(encode(draft)).to(device), k)
-    keys, valid = keys[valid], valid[valid]  # the draft's present windows
+    codes = torch.from_numpy(encode(draft)).to(device)
+    keys, valid = canonical_windows_fast(codes, k)
+    # the bounds of K10 (the sharded scan) and K12 (the data-parallel one):
+    # K1's work over every window of the draft, on the shards and on the
+    # whole table; the routing and the exchange are overhead, not bound.
+    # K12 also reads the codes once and writes counts, valid and unsafe.
+    keys = to_i32_bits(keys)
+    owner = _owner(mix32(keys), SHARDS)
+    k10 = probe_bound(rep_tab, keys, valid, rows=sum(
+        probed_rows(scanner.tabs[t], keys[owner == t], valid[owner == t], owner_bits=ob)
+        for t in range(SHARDS)))
+    k10["share_of_bound"] = k10["bound_ms"] / (scanner.seconds * 1e3)
+    k1 = probe_bound(rep_tab, keys, valid)
+    k12 = {"probed_rows": k1["probed_rows"], **bound(
+        k1["bound_bytes"] + codes.numel() + keys.shape[0] * (4 + 2), k1["bound_ops"])}
+    k12["share_of_bound"] = k12["bound_ms"] / (dp.seconds * 1e3)
+    keys = keys[valid]  # the draft's present windows
     owner = _owner(mix32(keys), SHARDS)
     rows = []
     for t in range(SHARDS):
-        kt = to_i32_bits(keys[owner == t][:LANES])
+        kt = keys[owner == t][:LANES]
         row = compare_probe(scanner.tabs[t], kt, torch.ones(kt.shape[0], dtype=torch.bool,
                                                             device=device), owner_bits=ob)
         row.update(shard=t, sub_table_bytes=int(scanner.tabs[t].numel() * 4))
@@ -1878,7 +1897,7 @@ def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -
            "replicated_scan_s": rep.seconds, "data_parallel_scan_s": dp.seconds,
            "owner_bits_launches": owner_launches, "data_parallel_launches": dp_launches,
            "fallback_lanes": scanner.fallback_lanes, "scanned_lanes": scanner.scanned_lanes,
-           "peak_device_bytes_above_base": peak,
+           "peak_device_bytes_above_base": peak, "k10_bound": k10, "k12_bound": k12,
            "probe": [{key: r[key] for key in ("shard", "lanes", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "share_of_bound", "probed_rows",
                                               "max_abs_err", "sub_table_bytes")}
@@ -1900,6 +1919,15 @@ def _count_seconds(drv) -> float:
         if on and msg.startswith("count: host table built"):
             return total
     raise AssertionError("phase 6's count stages not found")
+
+
+def fastq_bases(path: str) -> tuple[int, int]:
+    """(bases, reads) of a FASTQ of four-line records: the lengths of the
+    sequence lines summed."""
+    buf = np.fromfile(path, dtype=np.uint8)
+    ends = np.flatnonzero(buf == 10)
+    lens = ends - np.concatenate([[-1], ends[:-1]]) - 1
+    return int(lens[1::4].sum()), len(lens) // 4
 
 
 def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device,
@@ -1933,8 +1961,15 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
         raise AssertionError("mesh count: device table != phase 6's")
     if not np.array_equal(host.tab, table_to_numpy(scan_tab)):
         raise AssertionError("mesh count: host table != phase 6's")
+    # K11's bound: the reads' bases read once, the distinct records (key
+    # words and count) written once, every window hashed (~8 int32 ops a
+    # word + 10)
+    W = (2 * k + 31) // 32
+    n_bases, n_reads = fastq_bases(reads)
+    k11 = bound(n_bases + len(rkeys) * 4 * (W + 1), (n_bases - n_reads * (k - 1)) * (8 * W + 10))
+    k11.update(read_bases=n_bases, share_of_bound=k11["bound_ms"] / (wall * 1e3))
     out = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.flat],
-           "reads_bytes": os.path.getsize(reads), "records": int(len(rkeys)),
+           "reads_bytes": os.path.getsize(reads), "records": int(len(rkeys)), "k11_bound": k11,
            "count_s": wall, "phase6_count_s": count6_s,
            "peak_device_bytes_above_base": peak,
            "stages": [m for m in logs if m.startswith("count: ")], "card": card}
@@ -2173,14 +2208,14 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome-mbp", type=float, default=5.0,
+    ap.add_argument("--genome-mbp", type=float, default=2.0,
                     help="phase 4: genome length in Mbp (the table scales with it)")
     ap.add_argument("--race-kb", type=int, default=RACE_KB,
                     help="phases 5-7: race genome length in kb (the gates on "
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="phases to run after 1-2, comma-separated (7, 9, 10, 11, "
                          "13 and 14 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
@@ -2331,15 +2366,16 @@ def run_race37(phases, race37, device, card: str, children) -> dict:
 
 def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
                children):
-    """Phases 3-16; ``race``, ``big`` and ``race37`` wait for race20's,
+    """Phases 3-17; ``race``, ``big`` and ``race37`` wait for race20's,
     race100's and phase 16's data. Phase 9 runs in a child process beside
     phases 7, 10, 15 and 16 (its routes are host-bound); it is appended to
     ``children``, and so are phase 15's two processes. Phases 11, 13 and 14
     and the ranged kernel at the main path's shape run before it starts.
+    Phase 17 runs after phase 4, while the race data are still being made.
     Returns the driver paths' reports, the main-shape probe rows, phase 3's
     rows, the ranged kernel's comparisons (phase 3's, then the one at the
     main path's shape) with phase 10's ranged launches, and the reports of
-    phases 13 ("sharded") and 16 ("k37", a list)."""
+    phases 13 ("sharded"), 16 ("k37", a list) and 17 ("tools")."""
     import torch
 
     rng = np.random.default_rng(args.seed)
@@ -2349,6 +2385,8 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
         phase_runner(args, rng, device, workdir)
         torch.cuda.empty_cache()
     drivers, shapes, more = [], [], {}
+    if 17 in phases:  # while the race data are made, before phase 9's child
+        more["tools"] = phase_tools(card)
     if race is not None:
         asm, reads, genome, errors = race()
         if 5 in phases:

@@ -24,7 +24,52 @@ jellyfish-compatible CLI (count on the device, forward and filtered counts,
 host) with the ``dna_jellyfish`` bindings. Entry points:
 ``bin/jasper-tpu-torch`` (``python -m jasper_tpu_torch.pipeline.cli``),
 ``bin/jellyfish-tpu-torch`` (``python -m jasper_tpu_torch.pipeline.jf_cli``)
-and ``python -m jasper_tpu_torch.polish.runner``.
+and ``python -m jasper_tpu_torch.polish.runner``. The profiling tools
+(jasper_tpu's tools/profile_count.py, profile_polish.py and
+layout_sweep.py) are ``python -m jasper_tpu_torch.tools.<name>``.
+
+The top-level names are jasper_tpu's lazy API, each resolved from the
+port's module on first use: ``import jasper_tpu_torch`` alone imports no
+torch.
 """
 
 __version__ = "0.1.0"
+
+_API = {
+    "count_reads": "jasper_tpu_torch.count.counter",
+    "count_sequences": "jasper_tpu_torch.count.counter",
+    "histogram_rows": "jasper_tpu_torch.count.histogram",
+    "threshold_from_histogram": "jasper_tpu_torch.count.histogram",
+    "merge_jf_files": "jasper_tpu_torch.count.merge",
+    "read_jf": "jasper_tpu_torch.io.jf",
+    "write_jf": "jasper_tpu_torch.io.jf",
+    "read_any_jf": "jasper_tpu_torch.io.jf",
+    "load_jf_into_host_table": "jasper_tpu_torch.io.jf",
+    "dump_table_to_jf": "jasper_tpu_torch.io.jf",
+    "read_fasta": "jasper_tpu_torch.io.fastx",
+    "write_fasta": "jasper_tpu_torch.io.fastx",
+    "HostKmerTable": "jasper_tpu_torch.table.host_table",
+    "PolishEngine": "jasper_tpu_torch.polish.engine",
+    "CountSource": "jasper_tpu_torch.polish.engine",
+    "DevicePolishEngine": "jasper_tpu_torch.polish.device_engine",
+    "DeviceScanner": "jasper_tpu_torch.polish.device_engine",
+    "polish_file": "jasper_tpu_torch.polish.runner",
+    "run_pipeline": "jasper_tpu_torch.pipeline.driver",
+    "scan_window": "jasper_tpu_torch.polish.window",
+    "scan_window_tiled": "jasper_tpu_torch.polish.window",
+}
+
+
+def __getattr__(name):
+    """The lazy top-level API (jasper_tpu/__init__.py:23-54): the name's
+    module is imported on first use."""
+    mod = _API.get(name)
+    if mod is None:
+        raise AttributeError(f"module 'jasper_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(mod), name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_API))

@@ -274,6 +274,32 @@ def extract_windows(codes, k: int, canonical: bool = True, partition=None):
     return keys, valid
 
 
+def _chunk_windows(codes, k: int, canonical: bool):
+    """extract_windows without the padding lanes: the chunk's L-k+1
+    windows (none when L < k), as jasper_tpu's positional extraction gives
+    them to its chunk_to_run."""
+    keys, valid = extract_windows(codes, k, canonical)
+    n = max(int(codes.shape[0]) - k + 1, 0)
+    return keys[:n], valid[:n]
+
+
+def chunk_to_run(codes, k: int, canonical: bool = True):
+    """Code chunk (uint8 tensor [L]) -> compacted run of its deduped
+    canonical (or, canonical=False, forward) k-mers: (h, keys, counts,
+    n_active), length L-k+1, n_active a 0-d tensor (jasper_tpu's
+    chunk_to_run, RunAccumulator.push's feed). An empty run when L < k,
+    where jasper_tpu's raises."""
+    return _compact(*make_run_ones(*_chunk_windows(codes, k, canonical)))
+
+
+def chunk_to_run_fast(codes, k: int, canonical: bool = True):
+    """Code chunk -> UNCOMPACTED run (h, keys, counts) of length L-k+1:
+    one multi-key sort, duplicates left as interspersed dead lanes
+    (jasper_tpu's chunk_to_run_fast, RunAccumulator.push_uncompacted's
+    feed)."""
+    return make_run_ones(*_chunk_windows(codes, k, canonical))
+
+
 class RunAccumulator:
     """LSM-style accumulator of sorted runs on one device (jasper_tpu's
     RunAccumulator).
@@ -367,8 +393,8 @@ class RunAccumulator:
         return self.n_resident_lanes()
 
     def finish(self):
-        """Merge all levels; returns (h, keys, counts, n_active) or None if
-        nothing was pushed."""
+        """Merge all levels into one compacted run; returns (h, keys,
+        counts, n_active) or None if nothing was pushed."""
         self.flush_stage()
         runs = [self.levels.pop(j) for j in sorted(self.levels)]
         if not runs:
@@ -380,7 +406,9 @@ class RunAccumulator:
             cur = (h, keys, counts)
         h, keys, counts = cur
         if n_active is None:
-            n_active = (counts > 0).sum()
+            # a lone level may be an uncompacted push (push_uncompacted):
+            # compact it, so that the actives lead as build_table expects
+            h, keys, counts, n_active = _compact(h, keys, counts)
         return h, keys, counts, int(n_active)
 
 

@@ -14,6 +14,12 @@ forward_windows gives the forward keys alone (counting without -C). Both
 also serve the host (on CPU tensors) where jasper_tpu runs its numpy
 window stack: the filtered count's dedupe and the host table's queries.
 
+pack_codes, window_stack, canonical_windows and canonical_kmers_of_batch
+are jasper_tpu's slow reference forms (jasper_tpu/ops/kmer.py:42-89,213-222):
+k window columns packed base by base, O(k) memory passes. They give
+canonical_windows_fast's keys and serve tools/profile_count.py; the main
+path uses canonical_windows_fast.
+
 Also the host (numpy / int) helpers of jasper_tpu/ops/kmer.py:24-31 and
 229-274, copied as they are: key widths, the scalar conversions of the .jf
 text format and the dump's batch decoder.
@@ -24,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jasper_tpu_torch.ops.codes import CODE_T
 from jasper_tpu_torch.ops.hashing import M32
 
 
@@ -34,6 +41,61 @@ def words_per_kmer(k: int) -> int:
 def key_bytes(k: int) -> int:
     """Bytes per key in the .jf binary/sorted record (ceil(2k/8))."""
     return (2 * k + 7) // 8
+
+
+def _base_word_shift(k: int) -> list[tuple[int, int]]:
+    """For each base position p (0-based from the left): (word, shift) of
+    its two bits; word 0 is the least significant, so it is the short one
+    when 2k is not a multiple of 32."""
+    return [divmod(2 * (k - 1 - p), 32) for p in range(k)]
+
+
+def pack_codes(win: torch.Tensor, k: int) -> torch.Tensor:
+    """Base-code windows [..., k] (any integer dtype; only the low two bits
+    of each code are read) -> key words int64 [..., W], word 0 the least
+    significant, each in [0, 2^32)."""
+    W = words_per_kmer(k)
+    win = win.to(torch.int64) & 3
+    words = [torch.zeros(win.shape[:-1], dtype=torch.int64, device=win.device)
+             for _ in range(W)]
+    for p, (j, shift) in enumerate(_base_word_shift(k)):
+        words[j] |= win[..., p] << shift
+    return torch.stack(words, dim=-1)
+
+
+def window_stack(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """codes [L] -> windows [L-k+1, k] with windows[i, p] = codes[i+p]; no
+    windows when L < k (jasper_tpu's raises for 0 < L < k-1)."""
+    n = max(int(codes.shape[0]) - k + 1, 0)
+    return torch.stack([codes[p : p + n] for p in range(k)], dim=-1)
+
+
+def _canonical(win: torch.Tensor, k: int):
+    """Windows [..., k] of codes -> (canonical keys int64 [..., W], valid
+    bool [...]): the smaller of the forward and reverse-complement keys;
+    a window holding a code above T is invalid."""
+    valid = (win <= CODE_T).all(dim=-1)
+    safe = win.to(torch.int64) & 3
+    fwd = pack_codes(safe, k)
+    # reverse complement: base q of rc = 3 - base k-1-q
+    rc = pack_codes(3 - torch.flip(safe, dims=(-1,)), k)
+    return torch.where(words_le(fwd, rc)[..., None], fwd, rc), valid
+
+
+def canonical_windows(codes: torch.Tensor, k: int):
+    """Every k-mer window of a code array, canonicalized, by the window
+    stack (jasper_tpu's reference form): codes uint8 [L] (values 0..5; >= 4
+    marks an invalid base) -> (keys int64 [L-k+1, W], valid bool [L-k+1]).
+    Keys of invalid windows are the same garbage as canonical_windows_fast's
+    (codes & 3); callers mask them."""
+    return _canonical(window_stack(codes, k), k)
+
+
+def canonical_kmers_of_batch(codes: torch.Tensor, k: int):
+    """canonical_windows over a batch of equal-length code rows: [B, L] ->
+    (keys int64 [B, L-k+1, W], valid bool [B, L-k+1])."""
+    n = max(int(codes.shape[1]) - k + 1, 0)
+    return _canonical(torch.stack([codes[:, p : p + n] for p in range(k)], dim=-1), k)
 
 
 def words_le(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,12 @@ from jasper_tpu_torch.polish.engine import (
     PolishEngine,
     _all_acgt,
 )
-from jasper_tpu_torch.polish.window import classify_tiled, scan_counts, scan_counts_tiled
+from jasper_tpu_torch.polish.window import (
+    classify_tiled,
+    scan_counts_mesh,
+    scan_counts_tiled,
+    table_copies,
+)
 
 
 class ContigScan:
@@ -77,25 +82,7 @@ class DeviceScanner:
         self.tile = tile
         self.mesh = mesh
         self.seconds = 0.0
-        self._tabs = {tab.device: tab}
-        for dev in [] if mesh is None else mesh.flat:
-            if dev not in self._tabs:
-                self._tabs[dev] = tab.to(dev)
-
-    def _scan_counts_mesh(self, codes):
-        """Counts of every window of ``codes`` (on tab's device), the
-        mesh's devices taking consecutive tiles of one step each."""
-        k, tile, devs = self.k, self.tile, self.mesh.flat
-        n = max(codes.shape[0] - k + 1, 0)
-        counts = torch.empty(n, dtype=torch.int32, device=codes.device)
-        for pos in range(0, n, len(devs) * tile):
-            for d, dev in enumerate(devs):
-                s = pos + d * tile
-                m = min(tile, n - s)
-                if m > 0:
-                    counts[s : s + m] = scan_counts(
-                        self._tabs[dev], codes[s : s + m + k - 1].to(dev), k).to(codes.device)
-        return counts
+        self._tabs = table_copies(tab, [] if mesh is None else mesh.flat)
 
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:
         t0 = time.perf_counter()
@@ -104,7 +91,7 @@ class DeviceScanner:
         if self.mesh is None:
             counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
         else:
-            counts = self._scan_counts_mesh(codes)
+            counts = scan_counts_mesh(self._tabs, codes, self.k, self.tile, self.mesh.flat)
         scan = ContigScan(*classify_tiled(codes, counts, solid_thre, self.k, self.tile,
                                           self.divisor))
         self.seconds += time.perf_counter() - t0

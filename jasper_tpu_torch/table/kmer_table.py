@@ -69,12 +69,13 @@ _EMPTY_CLAIM = (1 << 31) - 1
 ROUND_LANES = 0
 
 
-def empty_table(k: int, n_slots: int, device="cpu") -> torch.Tensor:
-    """An empty table (int32 bits) with capacity >= n_slots keys."""
+def empty_table(k: int, n_slots: int, device="cuda") -> torch.Tensor:
+    """An empty table (int32 bits) with capacity >= n_slots keys, on the
+    card unless asked for the CPU (raises without a card)."""
     S = ROW_U32 // slot_words_for(words_per_kmer(k))
     n_buckets = max(1, -(-n_slots // S))
     return torch.zeros((n_buckets + PAD_BUCKETS, ROW_U32), dtype=torch.int32,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def table_capacity(tab, k: int) -> int:
@@ -237,8 +238,7 @@ class DeviceKmerTable:
     @classmethod
     def create(cls, k: int, n_keys_estimate: int, load_factor: float = 0.7,
                device="cuda") -> "DeviceKmerTable":
-        return cls(k=k, tab=empty_table(k, slots_for(n_keys_estimate, load_factor),
-                                        resolve_device(device)))
+        return cls(k=k, tab=empty_table(k, slots_for(n_keys_estimate, load_factor), device))
 
     @property
     def W(self) -> int:

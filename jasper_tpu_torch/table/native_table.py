@@ -60,6 +60,19 @@ def _load():
         return _lib
 
 
+def available() -> bool:
+    """Whether libjttable.so loads, building it with ``make`` on first use
+    (jasper_tpu's available()). jasper_tpu's callers take a pure-Python
+    path when it is False; the port has none, so False means the port's
+    host queries (the repair walk's CountSource, the host table's string
+    lookups) cannot run here and raise."""
+    try:
+        _load()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 class NativeTableQuery:
     """Bound to one host table's memory (no copies; keeps a reference)."""
 

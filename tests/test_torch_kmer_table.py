@@ -63,7 +63,7 @@ def test_insert_matches_jasper_tpu(k):
     n_distinct = 3000
     pool = random_keys(rng, n_distinct, k)
     jtab = jkt.empty_table(k, jkt.slots_for(n_distinct, 0.85))
-    ttab = tkt.empty_table(k, jkt.slots_for(n_distinct, 0.85))
+    ttab = tkt.empty_table(k, jkt.slots_for(n_distinct, 0.85), device="cpu")
     assert tkt.table_capacity(ttab, k) == jkt.table_capacity(jtab, k)
     rounds = []
     total0 = 0
@@ -103,7 +103,7 @@ def test_batch_counts_past_2_32_sum_exactly():
     for i in range(6000):
         key = pool[idx[i]].tobytes()
         want[key] = (want.get(key, 0) + int(counts[i])) & 0xFFFFFFFF
-    ttab, pending, placed = tkt.insert_kmers(tkt.empty_table(k, 6000), _t(pool[idx]),
+    ttab, pending, placed = tkt.insert_kmers(tkt.empty_table(k, 6000, device="cpu"), _t(pool[idx]),
                                              _t(counts), _t(active))
     jtab, _, _ = jkt.insert_kmers(jkt.empty_table(k, 6000), jnp.asarray(pool[idx]),
                                   jnp.asarray(counts), jnp.asarray(active))
@@ -130,11 +130,11 @@ def test_insert_past_pad_buckets_matches(k):
     counts = np.ones(n, np.uint32)
     active = np.ones(n, bool)
     _, ttab, pending, placed, _ = _both_insert(
-        jkt.empty_table(k, S), tkt.empty_table(k, S), keys, counts, active)
+        jkt.empty_table(k, S), tkt.empty_table(k, S, device="cpu"), keys, counts, active)
     assert (placed, pending) == (capacity, n - capacity)
     jtab, jp, jpl = jax.jit(functools.partial(jkt.insert_kmers, max_rounds=3))(
         jkt.empty_table(k, S), jnp.asarray(keys), jnp.asarray(counts), jnp.asarray(active))
-    ttab, tp, tpl = tkt.insert_kmers(tkt.empty_table(k, S), _t(keys), _t(counts),
+    ttab, tp, tpl = tkt.insert_kmers(tkt.empty_table(k, S, device="cpu"), _t(keys), _t(counts),
                                      _t(active), max_rounds=3)
     assert (tp, tpl) == (int(jp), int(jpl)) and tp > n - capacity
     np.testing.assert_array_equal(tkt.table_to_numpy(ttab), np.asarray(jtab))
@@ -151,7 +151,7 @@ def test_insert_owner_bits_matches(owner_bits):
     active = np.ones(2000, bool)
     jtab, jp, jpl = jax.jit(functools.partial(jkt.insert_kmers, owner_bits=owner_bits))(
         jkt.empty_table(k, 3000), jnp.asarray(keys), jnp.asarray(counts), jnp.asarray(active))
-    ttab, tp, tpl = tkt.insert_kmers(tkt.empty_table(k, 3000), _t(keys), _t(counts),
+    ttab, tp, tpl = tkt.insert_kmers(tkt.empty_table(k, 3000, device="cpu"), _t(keys), _t(counts),
                                      _t(active), owner_bits=owner_bits)
     assert (tp, tpl) == (int(jp), int(jpl)) == (0, 2000)
     np.testing.assert_array_equal(tkt.table_to_numpy(ttab), np.asarray(jtab))
@@ -189,7 +189,7 @@ def test_table_stats_match(k):
     counts = np.concatenate([np.ones(200), np.full(150, 2), np.full(50, 7)]).astype(np.uint32)
     jtab, _, _ = jkt.insert_kmers(jkt.empty_table(k, 1024), jnp.asarray(keys),
                                   jnp.asarray(counts), jnp.ones(400, bool))
-    ttab, _, _ = tkt.insert_kmers(tkt.empty_table(k, 1024), _t(keys), _t(counts),
+    ttab, _, _ = tkt.insert_kmers(tkt.empty_table(k, 1024, device="cpu"), _t(keys), _t(counts),
                                   torch.ones(400, dtype=torch.bool))
     want = jkt.table_stats(jtab, k)
     assert tkt.table_stats(ttab, k) == want == tkt.table_stats(tkt.table_to_numpy(ttab), k)

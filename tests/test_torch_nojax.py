@@ -4,7 +4,7 @@ process cannot: tests/conftest.py imports jax), then drives
 ``jasper_tpu_torch.polish.runner``, the pipeline CLI
 (``jasper_tpu_torch.pipeline.cli``, the partitioned scan included),
 bin/jellyfish-tpu-torch's count and dump, ``entry()`` and the claim-round
-insert, and the multi-device paths (``dryrun_multichip``: the sharded
+insert, the tools, and the multi-device paths (``dryrun_multichip``: the sharded
 table, its scanner, mesh counting; the process group) on the CPU end to
 end."""
 
@@ -153,6 +153,35 @@ def test_entry_and_insert_run_without_jax(tmp_path):
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "NOJAX_TABLE_OK" in r.stdout
+
+
+TOOLS_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    sys.modules["jasper_tpu"] = None  # and so does any of the JAX package
+    from jasper_tpu_torch.tools import profile_count, profile_polish
+    res = profile_polish.main(["20", "--device", "cpu"])
+    assert res["fixes"] == res["injected"] == 4 and res["clean_pass_fixes"] == 0, res
+    res = profile_count.main(["40000", "11", "--runs", "--stage", "--device", "cpu"])
+    assert res["distinct_keys"] > 0, res
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "jasper_tpu")
+                    and sys.modules[m])
+    assert not loaded, loaded
+    print("NOJAX_TOOLS_OK")
+""")
+
+
+def test_tools_run_without_jax(tmp_path):
+    """The port's profile_polish (the device scan, the host walk and its
+    native queries) and profile_count's ladder on the CPU, with jax and
+    jasper_tpu blocked."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", TOOLS_SCRIPT], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "NOJAX_TOOLS_OK" in r.stdout
 
 
 MULTI_SCRIPT = textwrap.dedent("""

@@ -91,6 +91,19 @@ def test_scan_covers_the_multi_device_modules():
     assert not [m for m in new if jasper_tpu_imports(os.path.join(REPO, m))]
 
 
+def test_scan_covers_the_tools():
+    """The scan reaches jasper_tpu_torch/tools/ (the profilers, the sweep
+    and the measurement helpers chip_smoke.py shares), and they import
+    nothing of jasper_tpu (the JAX tools import it)."""
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    tools = {os.path.join("jasper_tpu_torch", "tools", f) for f in (
+        "__init__.py", "measure.py", "profile_count.py", "profile_polish.py",
+        "layout_sweep.py")}
+    assert tools <= sources, tools - sources
+    assert not [m for m in tools if jasper_tpu_imports(os.path.join(REPO, m))]
+    assert jasper_tpu_imports(os.path.join(REPO, "tools", "profile_count.py"))
+
+
 @pytest.mark.parametrize("snippet,hit", [
     ("import jasper_tpu", True),
     ("import jasper_tpu.ops.codes as c", True),
