@@ -2,12 +2,14 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 2] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17] [--seed 7]
+                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18]
+                          [--seed 7]
                           [--workdir DIR] [--ab-probe OTHER_probe.cu]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
-  2. build csrc/*.cu for sm_90a from the checkout (timed);
+  2. build csrc/*.cu (the probe K1, the ladder's K4m and K4f) for sm_90a
+     from the checkout (timed);
   3. kernel vs plain: the CUDA bucket probe against its plain torch twin on
      the same CUDA tensors, bit for bit, at k=25 and k=37, on a fast-load
      table and a dense (load >= 0.85) one, 4 M lanes of present, absent and
@@ -32,7 +34,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   6. the main path, the driver from reads: jasper_tpu_torch.pipeline.cli
      -a asm.fa -r reads.fq -k 25 -p 2 -t 1 -b 25000000 --device cuda on the
      whole race input (the classic single-ladder count). Checks: the probe
-     kernel launched (count reset just before), the scanner took the
+     kernel and both K4 kernels (K4m merges, K4f flushes) launched (counts
+     reset just before), the scanner took the
      device-built table, which equals the host-built one, the native repair
      queries are bound, no counting step peaked past the budget's lane
      multiple (count/counter.py), and at 20000 kb jasper_tpu's race20
@@ -40,7 +43,10 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      Reports the stage seconds; the device ms of every extraction, stage
      flush, ladder merge and table build (CUDA events around the path's own
      calls), with the fastest full-size stage flush split into its
-     sorted_runs steps; the peak device memory of every sorting step against
+     sorted_runs steps (mix32, the sort passes, K4f's run_totals), the
+     merges' and flushes' totals beside the all-torch ladder's figures
+     (PERF.md, another call); the
+     peak device memory of every sorting step against
      the resident lanes; and the share of injected errors repaired. Then the
      probe at this path's shape (one 4 M-window tile of the draft against
      the counted table), kernel vs plain, the tile's scan by stage
@@ -54,18 +60,20 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      host-merge finish. Gates: the race20 records, the device table built
      from the merged run equal to phase 6's scanner table, one level pull
      equal to a blocking .cpu() of the same level, no step past the lane
-     multiple. Reports each branch's seconds (counting, pulls, host merge,
-     device build), and the host mix32 against pulling h;
+     multiple, K4m and K4f launched (counted per branch from 0, gated over
+     the phase). Reports each branch's seconds (counting, pulls, host
+     merge, device build), and the host mix32 against pulling h;
   8. chromosome scale, the driver from reads on make_data(--big-kb, 40)
      (race100: made in a child process while phases 3-7 run, and run after
      race20's files are deleted), phase 6's arguments and no
      JT_* variable: the budget must choose P > 1. At 100000 kb jasper_tpu's
      race100 results gate it: 278,399,246 records, threshold 5, QV 36.14758
      -> 76.81952, jfhisto25.csv equal to race_artifacts/race100_histo_tpu.txt;
-     and the probe launched, the scanner's table equals the host table, no
-     step past the lane multiple. Reports P, G, the stage seconds, the
-     resident lanes per pass, the device ms of the split flushes and the
-     peak device memory;
+     and the probe and both K4 kernels launched, the scanner's table equals
+     the host table, no step past the lane multiple. Reports P, G, the
+     stage seconds, the resident lanes per pass, the device ms of the split
+     flushes and merges (beside the all-torch ladder's) and the peak
+     device memory;
   9. the jellyfish-compatible entry point (bin/jellyfish-tpu-torch), on
      race20's files in a child process that starts after phase 14 and runs
      beside phases 7, 10, 15 and 16 (whose seconds therefore share the
@@ -118,8 +126,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      whole reads through count_reads_to_host over local_data_mesh(devices=
      ["cuda:0"] * 2) (chunks dealt round-robin, one ladder each, folded at
      the finish). Gates: 55,718,396 records at 20000 kb, host and device
-     table bytes equal to phase 6's. Reports its seconds against phase 6's
-     count;
+     table bytes equal to phase 6's, K4m and K4f launched. Reports its
+     seconds against phase 6's count;
  15. two processes, beside phase 9's child: run_pipeline from reads at
      k=25 on phase 16's race data (make_data(1000, 40)), its draft cut into
      8 contigs (4 batches), once in this process and once in two child
@@ -146,7 +154,20 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      and its clean pass fixed nothing, every sweep row took a positive time
      and the sweep's K1 row equals its plain twin bit for bit. Reports the
      tools' JSON (ms per chunk, bases/s, prepare / pass / clean-pass ms,
-     each primitive's ms, K1's ms, bound and share) and the seconds.
+     each primitive's ms, K1's ms, bound and share) and the seconds;
+ 18. the counting ladder's kernels (csrc/runs.cu), after phase 17 and
+     before phase 9's child starts: K4m (merge_runs) and K4f (run_totals,
+     compact_run) against their plain twins on the same CUDA tensors, on
+     seeded synthetic runs made on the card: W = 2 and 3; 2^20, 2^24 and
+     2^26 lanes a side; key overlaps of 0, 50 and 100%; counts that
+     saturate at 2^32-1; unequal lengths padded as the ladder pads; an
+     empty run; two uncompacted make_run_ones runs; stage-shaped window
+     sets of 2^24 and 2^26 lanes with a run of 10^5 equal windows, in both
+     output modes. Gates: actives and n_active bit for bit, every dead
+     lane's count 0, the launch counters moved, a count saturated, and
+     torch.unique_consecutive's counts equal K4f's. Reports each case's ms,
+     bound (tools/measure.py:bound), share, the plain twin's ms and K4f's
+     unique_consecutive ms.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -873,7 +894,9 @@ class EventLog:
     """Wraps functions so each call records CUDA events around it (no
     synchronise) and the lanes it was given: device times of the main path's
     own calls, read after the run. Functions wrapped with step() are timed
-    only inside a stage flush, each flush's steps apart."""
+    only inside a stage flush, each flush's steps apart: mix32, the sort
+    keys and passes (torch.sort), and run_totals, the K4f kernel's entry
+    (the run lengths and the compaction in one call)."""
 
     def __init__(self):
         self.calls: dict[str, list] = {}
@@ -928,7 +951,7 @@ class EventLog:
                 if name == "sort pass":
                     name += f" {sum(n.startswith(name) for n in split) + 1}"
                 split[name] = s.elapsed_time(e)
-            split["other (concat, gathers)"] = total - sum(split.values())
+            split["other (concat)"] = total - sum(split.values())
             res["stage_flush_steps"] = {
                 "lanes": full, "flushes_at_this_size": len(at_full),
                 "totals_ms": [f[1] for f in at_full],
@@ -1066,8 +1089,7 @@ def event_wraps(events: EventLog) -> list:
         (sr, "mix32", lambda f: events.step("mix32", f)),
         (sr, "_sort_cols", lambda f: events.step("sort keys", f)),
         (sr, "_sort_pass", lambda f: events.step("sort pass", f)),
-        (sr, "_run_lengths", lambda f: events.step("segment totals", f)),
-        (sr, "_compact", lambda f: events.step("compact", f)),
+        (sr, "run_totals", lambda f: events.step("totals + compaction (K4f)", f)),
         (sr.RunAccumulator, "_merge", lambda f: events.wrap(
             "ladder_merge", f,
             lambda self, a, b: 2 * max(a[0].shape[0], b[0].shape[0]))),
@@ -1083,8 +1105,40 @@ PASS_RE = re.compile(r"count: pass (\d+)/(\d+) counted \((\d+) resident lanes, "
 PARTS_RE = re.compile(r"count: (\d+) hash partitions in (\d+) passes")
 
 
+def reset_k4() -> None:
+    """Zero the K4m and K4f launch counts (count/sorted_runs.py)."""
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    sr.MERGE_LAUNCHES = sr.RUNS_LAUNCHES = sr.COMPACT_LAUNCHES = 0
+
+
+def k4_launches(what: str, gate: bool = True) -> dict:
+    """K4m and K4f launches since reset_k4() (K4f's run totals and its
+    counts-given compaction apart); with ``gate`` fails unless K4m and
+    K4f's run totals ran (the count went through them)."""
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    got = {"merge_launches": sr.MERGE_LAUNCHES, "runs_launches": sr.RUNS_LAUNCHES,
+           "compact_launches": sr.COMPACT_LAUNCHES}
+    if gate and not (got["merge_launches"] > 0 and got["runs_launches"] > 0):
+        raise AssertionError(f"{what}: the count did not run both K4 kernels: {got}")
+    return got
+
+
+def k4_device_ms(events: "EventLog", torch_ms: dict | None) -> dict:
+    """This run's device ms of the ladder merges and the (split) stage
+    flushes, beside the all-torch ladder's figures for the same path
+    (another call)."""
+    summary = {name: events.calls.get(name, []) for name in
+               ("ladder_merge", "stage_flush", "split_flush")}
+    out = {name: sum(s.elapsed_time(e) for _l, s, e in calls)
+           for name, calls in summary.items()}
+    out["all_torch_other_call_ms"] = torch_ms or "not at this size"
+    return out
+
+
 def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
-                 gates: dict, k: int = 25) -> dict:
+                 gates: dict, k: int = 25, torch_ms: dict | None = None) -> dict:
     """Phases 6 and 8: the port's CLI from reads as the race ran jasper_tpu
     (tools/race_reference.py:180-182,214,244), every extraction, stage
     flush (step by step), ladder merge and table build timed on the card as
@@ -1105,12 +1159,14 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     peaks = PeakLog(device, k)
     torch.cuda.reset_peak_memory_stats(device)
     probe.LAUNCHES = 0
+    reset_k4()
     t0 = time.perf_counter()
     with patched(event_wraps(events) + peaks.wraps()):
         res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
                        "-b", "25000000", "--workdir", wd, "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = probe.LAUNCHES
+    k4 = k4_launches("driver path")
     peak = max(peaks.peak, torch.cuda.max_memory_allocated(device))
 
     stages = res["stages"]
@@ -1149,9 +1205,9 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
            "repaired_share": repaired_share(genome, polished, errors),
            "identical_to_genome": polished == genome,
            "resident_lanes_after_count": resident,
-           "probe_launches": launches, "peak_device_bytes": peak,
+           "probe_launches": launches, "k4": k4, "peak_device_bytes": peak,
            "wall_s": wall, "stage_seconds_since_previous": splits,
-           "device_ms": events.summary(),
+           "device_ms": events.summary(), "k4_device_ms": k4_device_ms(events, torch_ms),
            "k7_ms": cuda_ms(lambda: histogram_rows(scanner.tab, k), 5),
            "table_bytes": int(scanner.tab.numel() * 4),
            "count_peak_memory": peaks.check(counter.PEAK_LANE_MULTIPLE), "card": card}
@@ -1243,6 +1299,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
             log(msg)
 
         pulls.seconds = dict.fromkeys(pulls.seconds, 0.0)
+        reset_k4()
         os.environ.update(env)
         try:
             with patched(peaks.wraps() + pulls.wraps()):
@@ -1253,6 +1310,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
             for var in env:
                 del os.environ[var]
         wall = time.perf_counter() - t0
+        k4 = k4_launches(name, gate=False)
         msgs = [m for _, m in lines]
         if not any(m.startswith(line) for m in msgs):
             raise AssertionError(f"{name}: no '{line}' line: {msgs}")
@@ -1265,7 +1323,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
                                  "phase 6's scanner table")
         at = dict((m.split(" (")[0], t) for t, m in lines)
         counted = max(t for t, m in lines if "counted" in m or "counting done" in m)
-        row = {"branch": name, "env": env, **kw,
+        row = {"branch": name, "env": env, **kw, "k4": k4,
                "records": len(rkeys), "wall_s": wall, "counting_s": counted,
                **{f"{k_}_s": v for k_, v in pulls.seconds.items()},
                "host_table_s": at["count: host table built"] - min(
@@ -1291,6 +1349,9 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
         torch.cuda.empty_cache()
     if not pulls.compared:
         raise AssertionError("no level pull was held against a blocking copy")
+    for key in ("merge_launches", "runs_launches"):
+        if sum(r["k4"][key] for r in rows) <= 0:
+            raise AssertionError(f"phase 7: no branch's count ran K4 ({key} 0)")
     return rows
 
 
@@ -1549,6 +1610,271 @@ def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25)
     part.tab = None
     log("race100 partitioned " + json.dumps(out))
     return out
+
+
+# -- phase 18: K4m and K4f against their plain twins -------------------------
+
+K4_SIDES = (1 << 20, 1 << 24, 1 << 26)  # lanes a side of each merge
+K4_STAGES = (1 << 24, 1 << 26)  # lanes of each stage-shaped window set
+K4_REPEAT = 100_000  # equal windows in one run of every window set
+K4_MAIN = 1 << 26  # the main path's largest merge side and race20's flush
+# device ms of the count's flushes and merges when they were torch ops
+# (PERF.md, an earlier call on an NVIDIA H100 80GB HBM3 at 700.00 W)
+ALL_TORCH_COUNT_MS = {"race20": {"stage_flush": 4208.6, "ladder_merge": 1513.8},
+                      "race100": {"split_flush": 20950.3, "ladder_merge": 29184.8}}
+MERGE_DESIGN = ("merge path in tiles of 1024 merged lanes: a thread per tile "
+                "diagonal binary-searches the split (a first on equal keys), a "
+                "block stages its tile and the lane on each side in shared memory, "
+                "a thread merges 4 lanes from its sub-diagonal, drops a b lane equal "
+                "to the a lane before it and sums an a lane with an equal b lane "
+                "after it; a counting pass, one block's scan of the tile counts, a "
+                "writing pass; n_a and n_b read on the card, clamped to the runs' lanes")
+TOTALS_DESIGN = ("the sort's permutation and the unsorted lanes in, the gathers "
+                 "fused: a block flags its tile's representatives (valid, unequal "
+                 "to the lane before) from shared memory and counts them, one "
+                 "block scans the tile counts, a pass stores the representatives' "
+                 "positions compacted, a total is the next position (or the valid "
+                 "lanes' end) minus its own; no cummin")
+
+
+def _u32(shape, gen, device, lo: int = 0):
+    import torch
+
+    return torch.randint(lo, 1 << 32, shape, generator=gen, device=device,
+                         dtype=torch.int64)
+
+
+def synthetic_run(idx, W: int, L: int, gen, device):
+    """A compacted run of one distinct key per idx (int64 on the card):
+    word 0 idx * 0x9E3779B1 mod 2^32 (odd, so one key per idx), the other
+    words functions of idx; sorted by (h, key) with h = mix32; counts
+    random in [1, 2^32-2] but near 2^32-1 for every 16th idx, so that a key
+    on both sides saturates (and a merged count of 2^32-1 is a saturated
+    sum); padded to L lanes with dead lanes of random h and keys."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+    from jasper_tpu_torch.ops.hashing import mix32
+
+    words = [(idx * 0x9E3779B1) & M32]
+    for j in range(1, W):
+        words.append((((idx >> (5 * j)) * (0x85EBCA6B + 2 * j)) ^ idx) & M32)
+    keys = torch.stack(words, 1)
+    counts = torch.where(idx % 16 == 0, M32 - 1 - idx % 1000,
+                         1 + _u32((idx.shape[0],), gen, device) % (M32 - 1))
+    h, keys, counts = sr._sort_by_key(mix32(keys), keys, counts)
+    pad = L - idx.shape[0]
+    return (torch.cat([h, _u32((pad,), gen, device)]),
+            torch.cat([keys, _u32((pad, W), gen, device)]),
+            torch.cat([counts, counts.new_zeros(pad)]))
+
+
+def same_run(got, want, what: str) -> int:
+    """Actives and n_active bit for bit, every dead lane's count 0 -> the
+    largest |difference| over the actives (0)."""
+    n = int(want[3])
+    if int(got[3]) != n:
+        raise AssertionError(f"{what}: n_active {int(got[3])} != the plain twin's {n}")
+    err = max((int((g[:n] - w[:n]).abs().max()) for g, w in zip(got[:3], want[:3])),
+              default=0) if n else 0
+    if err:
+        raise AssertionError(f"{what}: actives differ from the plain twin by {err}")
+    if bool((got[2][n:] != 0).any()):
+        raise AssertionError(f"{what}: a dead lane's count is not 0")
+    return err
+
+
+def merge_case(W: int, La: int, Lb: int, overlap: float, gen, device, card: str,
+               n_b=None, pad_to=None) -> dict:
+    """K4m on two synthetic runs (3/4 of each active, a share ``overlap``
+    of b's keys in a) against merge_runs_plain on the same tensors; b is
+    padded to ``pad_to`` lanes as the ladder pads the smaller run. The
+    bound: the active lanes read once, the output's actives written once
+    (8 (W + 2) B a lane) and each dead output lane's count (8 B; its h
+    and keys are free), against 2 (W + 1) int32 compares a lane."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    n_a = 3 * La // 4
+    n_b = 3 * Lb // 4 if n_b is None else n_b
+    shared = int(overlap * min(n_a, n_b))
+    ia = torch.arange(n_a, device=device)
+    ib = torch.cat([ia[:shared], torch.arange(n_a, n_a + n_b - shared, device=device)])
+    a = synthetic_run(ia, W, La, gen, device)
+    b = synthetic_run(ib, W, Lb, gen, device)
+    del ia, ib
+    if pad_to:
+        b = sr._pad_run(*b, pad_to)
+    what = f"K4m W={W} {La}+{b[0].shape[0]} lanes, overlap {overlap}"
+    want = sr.merge_runs_plain(*a, *b)
+    got = sr.merge_runs(*a, *b, n_a=n_a, n_b=n_b)
+    err = same_run(got, want, what)
+    n = int(got[3])
+    saturated = int((got[2][:n] == M32).sum())
+    L = got[0].shape[0]
+    del want, got
+    na_t = torch.full((), n_a, dtype=torch.int64, device=device)
+    nb_t = torch.full((), n_b, dtype=torch.int64, device=device)
+    big = La + Lb >= 1 << 26
+    ms = cuda_ms(lambda: sr.merge_runs_cuda(*a, *b, na_t, nb_t), 3 if big else 10)
+    plain = cuda_ms(lambda: sr.merge_runs_plain(*a, *b), 1 if big else 3)
+    lane = 8 * (W + 2)
+    bnd = bound((n_a + n_b + n) * lane + (L - n) * 8, (n_a + n_b) * 2 * (W + 1))
+    del a, b
+    torch.cuda.empty_cache()
+    return {"kernel": "K4m", "W": W, "lanes_a": La, "lanes_b": L - La, "n_a": n_a,
+            "n_b": n_b, "overlap": overlap, "n_active": n, "saturated": saturated,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, **bnd,
+            "share_of_bound": bnd["bound_ms"] / ms, "card": card}
+
+
+def window_set(W: int, B: int, gen, device):
+    """Stage-shaped windows: B lanes of keys drawn from a pool of B/2 (most
+    keys two or three times), 3% invalid, and one run of K4_REPEAT equal
+    windows."""
+    import torch
+
+    pool = _u32((B // 2, W), gen, device)
+    keys = pool[torch.randint(0, B // 2, (B,), generator=gen, device=device)]
+    keys[B // 3 : B // 3 + K4_REPEAT] = keys[7]
+    valid = torch.rand(B, generator=gen, device=device) < 0.97
+    valid[B // 3 : B // 3 + K4_REPEAT] = True
+    valid[7] = True
+    return keys, valid
+
+
+def totals_case(W: int, B: int, gen, device, card: str) -> dict:
+    """K4f (multiplicity 1) in both output modes on a window set against
+    run_totals_plain on the same tensors; the library yardstick is
+    torch.unique_consecutive(dim=0, return_counts=True) over the sorted
+    valid lanes' stacked (h, keys), whose counts must equal the compacted
+    totals. The bound: perm and valid read once, h and keys of the valid
+    lanes once, the run's actives written once (8 (W + 2) B a lane) and
+    each dead lane's count (8 B), against W + 1 int32 compares a lane; the
+    counts-given mode's: the counts read once, h and keys of the actives
+    once, and the same output."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    keys, valid = window_set(W, B, gen, device)
+    h, perm = sr._window_order(keys, valid)
+    err = 0
+    for compact in (True, False):
+        want = sr.run_totals_plain(h, keys, valid, perm, compact)
+        got = sr.run_totals(h, keys, valid, perm, compact)
+        what = f"K4f W={W} {B} lanes compact={compact}"
+        if compact:
+            err = max(err, same_run(got, want, what))
+            n = int(got[3])
+            counts = got[2][:n].clone()
+        else:
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{what}: differs from the plain twin")
+            if int(got[2].max()) < K4_REPEAT:
+                raise AssertionError(f"{what}: the {K4_REPEAT}-window run is missing")
+        del want, got
+    nv = int(valid.sum())
+    stacked = torch.cat([h[perm][:nv, None], keys[perm][:nv]], 1)
+    lib = torch.unique_consecutive(stacked, dim=0, return_counts=True)[1]
+    if not torch.equal(lib, counts):
+        raise AssertionError(f"K4f W={W} {B}: unique_consecutive's counts differ")
+    del lib, counts
+    big = B >= 1 << 26
+    ms = cuda_ms(lambda: sr.run_totals_cuda(h, keys, valid, perm, True), 3 if big else 10)
+    ms_unc = cuda_ms(lambda: sr.run_totals_cuda(h, keys, valid, perm, False), 3 if big else 10)
+    plain = cuda_ms(lambda: sr.run_totals_plain(h, keys, valid, perm, True), 1 if big else 3)
+    lib_ms = cuda_ms(lambda: torch.unique_consecutive(stacked, dim=0, return_counts=True), 1)
+    out_bytes = n * 8 * (W + 2) + (B - n) * 8
+    bnd = bound(B * (8 + 1) + nv * 8 * (W + 1) + out_bytes, B * (W + 1))
+    del stacked
+    # counts given (compact_run, _compact's kernel) on the sorted lanes
+    sh, sk, st = sr.run_totals_cuda(h, keys, valid, perm, False)
+    what = f"K4f counts given W={W} {B} lanes"
+    cerr = same_run(sr.compact_run(sh, sk, st), sr._compact(sh, sk, st), what)
+    c_ms = cuda_ms(lambda: sr.compact_run_cuda(sh, sk, st), 3 if big else 10)
+    c_plain = cuda_ms(lambda: sr._compact(sh, sk, st), 1 if big else 3)
+    c_bnd = bound(B * 8 + n * 8 * (W + 1) + out_bytes, B)
+    del sh, sk, st, keys, valid, h, perm
+    torch.cuda.empty_cache()
+    return {"kernel": "K4f", "W": W, "lanes": B, "n_active": n, "valid": nv,
+            "max_abs_err": max(err, cerr), "ms": ms, "ms_uncompacted": ms_unc,
+            "plain_ms": plain, "library_ms": lib_ms, **bnd,
+            "share_of_bound": bnd["bound_ms"] / ms,
+            "counts_given": {"ms": c_ms, "plain_ms": c_plain, **c_bnd,
+                             "share_of_bound": c_bnd["bound_ms"] / c_ms},
+            "card": card}
+
+
+def phase_runs(device, card: str, seed: int) -> dict:
+    """Phase 18: K4m and K4f against their plain twins on the same CUDA
+    tensors, bit for bit (actives and n_active, every dead lane's count 0),
+    on seeded synthetic runs made on the card: W = 2 and 3, 2^20, 2^24 and
+    2^26 lanes a side, key overlaps of 0, 50 and 100%, counts that
+    saturate, runs of unequal length (padded as the ladder pads them), an
+    empty run and two uncompacted make_run_ones runs; K4f on stage-shaped
+    window sets of 2^24 and 2^26 lanes with a run of 10^5 equal windows,
+    in both output modes, and its counts-given mode. Gates also that the
+    launch counters moved and that saturation fired. Reports each case's
+    ms (CUDA events), bound, share, the plain twin's ms and, for K4f,
+    torch.unique_consecutive's."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    before = (sr.MERGE_LAUNCHES, sr.RUNS_LAUNCHES, sr.COMPACT_LAUNCHES)
+    t0 = time.perf_counter()
+    merges = [merge_case(W, side, side, ov, gen, device, card)
+              for W in (2, 3) for side in K4_SIDES for ov in (0.0, 0.5, 1.0)]
+    merges.append(merge_case(2, 1 << 24, 1 << 23, 0.5, gen, device, card, pad_to=1 << 24))
+    merges.append(merge_case(2, 1 << 20, 1 << 20, 0.0, gen, device, card, n_b=0))
+    # two uncompacted runs (make_run_ones: K4f on the card): the dispatcher
+    # compacts each (K4f, counts given) before K4m
+    ra = sr.make_run_ones(*window_set(2, 1 << 22, gen, device))
+    rb = sr.make_run_ones(*window_set(2, 1 << 22, gen, device))
+    unc = same_run(sr.merge_runs(*ra, *rb), sr.merge_runs_plain(*ra, *rb),
+                   "K4m on uncompacted runs")
+    del ra, rb
+    totals = [totals_case(W, B, gen, device, card)
+              for W, B in ((2, K4_STAGES[0]), (2, K4_STAGES[1]), (3, K4_STAGES[0]))]
+    moved = {"merge_launches": sr.MERGE_LAUNCHES - before[0],
+             "runs_launches": sr.RUNS_LAUNCHES - before[1],
+             "compact_launches": sr.COMPACT_LAUNCHES - before[2]}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"phase 18: the launch counters did not move: {moved}")
+    if not any(r["saturated"] for r in merges):
+        raise AssertionError("phase 18: no merge saturated a count")
+    torch.cuda.empty_cache()
+    out = {"merges": merges, "totals": totals, "uncompacted_merge_err": unc,
+           "launches": moved, "seconds": time.perf_counter() - t0, "card": card}
+    log("k4 kernels " + json.dumps(out))
+    return out
+
+
+def k4_rows(runs: dict, drivers: list) -> list[dict]:
+    """The kernels line's K4m and K4f rows: the main path's largest shapes
+    (a merge of 2^26 lanes a side at W = 2, overlap 50%; race20's stage
+    flush of 2^26 lanes), their launches summed over the driver paths."""
+    m = next(r for r in runs["merges"]
+             if (r["W"], r["lanes_a"], r["overlap"]) == (2, K4_MAIN, 0.5))
+    t = next(r for r in runs["totals"] if (r["W"], r["lanes"]) == (2, K4_MAIN))
+    rows = []
+    for name, r, key, line, library, design in (
+            ("merge_runs", m, "merge_launches", "jasper_tpu/count/sorted_runs.py:136",
+             None, MERGE_DESIGN),  # no single PyTorch call merges two runs
+            ("run_totals", t, "runs_launches", "jasper_tpu/count/sorted_runs.py:88",
+             t["library_ms"], TOTALS_DESIGN)):
+        rows.append({
+            "name": name, "route": "cuda", "source": "jasper_tpu_torch/csrc/runs.cu",
+            "replaces": line, "launches": sum(d["k4"][key] for d in drivers),
+            "max_abs_err": max(x["max_abs_err"] for x in runs["merges"] + runs["totals"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": library, "design": design})
+    return rows
 
 
 # -- phase 17: the tools ----------------------------------------------------
@@ -1948,12 +2274,14 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     logs = []
+    reset_k4()
     t0 = time.perf_counter()
     host, rkeys, _rcounts, dev_tab = count_reads_to_host(
         [reads], k, device, hash_size_hint=max(os.path.getsize(reads) // 10, 1024),
         tlog=logs.append, mesh=mesh)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    k4 = k4_launches("mesh count")
     peak = torch.cuda.max_memory_allocated(device) - base
     if records_gate is not None and len(rkeys) != records_gate:
         raise AssertionError(f"mesh count: {len(rkeys)} records != {records_gate}")
@@ -1970,7 +2298,7 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     k11.update(read_bases=n_bases, share_of_bound=k11["bound_ms"] / (wall * 1e3))
     out = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.flat],
            "reads_bytes": os.path.getsize(reads), "records": int(len(rkeys)), "k11_bound": k11,
-           "count_s": wall, "phase6_count_s": count6_s,
+           "count_s": wall, "phase6_count_s": count6_s, "k4": k4,
            "peak_device_bytes_above_base": peak,
            "stages": [m for m in logs if m.startswith("count: ")], "card": card}
     del host, rkeys, _rcounts, dev_tab
@@ -2147,12 +2475,14 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
 
     wd = os.path.join(os.path.dirname(reads), "run37")
     probe.LAUNCHES = 0
+    reset_k4()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
                    "-b", "25000000", "-d", "--workdir", wd, "--device", str(device)])
     wall = time.perf_counter() - t0
     launches = probe.LAUNCHES
+    k4 = k4_launches("k=37 driver path", gate=False)
     peak = torch.cuda.max_memory_allocated(device)
     if launches <= 0:
         raise AssertionError("the k=37 driver path never launched the probe kernel")
@@ -2197,7 +2527,8 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
     polished = read_fasta_one(os.path.join(wd, "asm.fa.polished.fasta"))
     out = {"k": k, "genome_bp": len(genome), "reads_bytes": os.path.getsize(reads),
            "records": int(len(keys)), "threshold": thr, "q_before": res["q_before"],
-           "q_after": res["q_after"], "probe_launches": launches, "batches": len(batches),
+           "q_after": res["q_after"], "probe_launches": launches, "k4": k4,
+           "batches": len(batches),
            "repaired_share": repaired_share(genome, polished, errors),
            "wall_s": wall, "oracle_s": oracle_s, "host_walk_s": host_s,
            "peak_device_bytes": peak, "card": card}
@@ -2215,7 +2546,7 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="phases to run after 1-2, comma-separated (7, 9, 10, 11, "
                          "13 and 14 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
@@ -2232,8 +2563,8 @@ def main(argv=None) -> int:
         ap.error("phases 7, 9, 10, 11, 13 and 14 hold their results against phase 6's")
     if 12 in phases and 8 not in phases:
         ap.error("phase 12 scans phase 8's table")
-    if not phases & {6, 8}:
-        ap.error("the kernels line needs a driver path: phase 6 or 8")
+    if not phases & {6, 8, 18}:
+        ap.error("the kernels line needs a driver path (phase 6 or 8) or phase 18")
 
     import torch
 
@@ -2287,21 +2618,22 @@ def main(argv=None) -> int:
     if not args.workdir:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    max_err = max([r["max_abs_err"] for r in probe_rows + shapes])
-    kernels = {"kernels": [{
-        "name": "bucket_probe",
-        "route": "cuda",
-        "source": "jasper_tpu_torch/csrc/probe.cu",
-        "replaces": "jasper_tpu/table/pallas_probe.py:73",
-        "launches": sum(d["probe_launches"] for d in drivers + more.get("k37", [])),
-        "max_abs_err": max_err,
-        "ms": shapes[0]["ms"],
-        "plain_ms": shapes[0]["plain_ms"],
-        "bound_ms": shapes[0]["bound_ms"],
-        "bound_by": shapes[0]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes a bucket probe
-        "design": PROBE_DESIGN,
-    }]}
+    kernels: dict = {"kernels": []}
+    if shapes:  # a driver path ran
+        kernels["kernels"].append({
+            "name": "bucket_probe",
+            "route": "cuda",
+            "source": "jasper_tpu_torch/csrc/probe.cu",
+            "replaces": "jasper_tpu/table/pallas_probe.py:73",
+            "launches": sum(d["probe_launches"] for d in drivers + more.get("k37", [])),
+            "max_abs_err": max(r["max_abs_err"] for r in probe_rows + shapes),
+            "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"],
+            "bound_ms": shapes[0]["bound_ms"],
+            "bound_by": shapes[0]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a bucket probe
+            "design": PROBE_DESIGN,
+        })
     if ranged["rows"]:
         main = ranged["rows"][-1]  # the driver path's shape where it ran
         kernels["kernels"].append({
@@ -2336,6 +2668,9 @@ def main(argv=None) -> int:
             "library_ms": None,  # no single PyTorch call computes a bucket probe
             "design": OWNER_DESIGN,
         })
+    if "runs" in more:
+        kernels["kernels"] += k4_rows(more["runs"], drivers)
+    log(f"K4 launches per driver path {[d['k4'] for d in drivers]}")
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
         f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
@@ -2387,6 +2722,8 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
     drivers, shapes, more = [], [], {}
     if 17 in phases:  # while the race data are made, before phase 9's child
         more["tools"] = phase_tools(card)
+    if 18 in phases:  # likewise
+        more["runs"] = phase_runs(device, card, args.seed)
     if race is not None:
         asm, reads, genome, errors = race()
         if 5 in phases:
@@ -2395,7 +2732,7 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
             full = args.race_kb == RACE_KB
             drv = phase_driver(asm, reads, genome, errors, device, card, gates={
                 "records": RACE_RECORDS, "threshold": 5, "qv": list(RACE_QV)}
-                if full else {})
+                if full else {}, torch_ms=ALL_TORCH_COUNT_MS["race20"] if full else None)
             drivers.append(drv)
             scanner, draft = drv.pop("_scanner"), drv.pop("_draft")
             shapes.append(phase_main_shape(scanner, draft, device,
@@ -2450,12 +2787,14 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
     if big is not None:
         asm, reads, genome, errors = big()
         gates = {"partitions_chosen": True}
+        torch_ms = ALL_TORCH_COUNT_MS["race100"] if args.big_kb == BIG_KB else None
         if args.big_kb == BIG_KB:
             from jasper_tpu_torch.count.histogram import read_histogram
 
             gates.update(records=BIG_RECORDS, threshold=5, qv=list(BIG_QV),
                          histogram=read_histogram(os.path.join(HERE, BIG_HISTO)))
-        drv = phase_driver(asm, reads, genome, errors, device, card, gates)
+        drv = phase_driver(asm, reads, genome, errors, device, card, gates,
+                           torch_ms=torch_ms)
         drivers.append(drv)
         scanner, draft = drv.pop("_scanner"), drv.pop("_draft")
         shapes.append(phase_main_shape(scanner, draft, device, drv["probe_launches"], card))

@@ -18,6 +18,22 @@ int64: key words in pairs from the top, then (dead << 32) | h — two passes
 at k <= 32 (W <= 2), three at k = 37 (W = 3).
 
 Counts saturate at 2^32-1 on merge, as jasper_tpu's do.
+
+K4's two dominant device steps have hand kernels (csrc/runs.cu), each with
+its plain torch twin here and a dispatcher that follows table/probe.py's
+rule: a CPU tensor takes the twin, a CUDA tensor launches the kernel or
+raises (there is no fallback):
+
+  * K4m ``merge_runs`` (twin ``merge_runs_plain``): the merge-path merge of
+    two compacted runs whose active counts are known;
+  * K4f ``run_totals`` (twin ``run_totals_plain``: the gathers,
+    ``_run_lengths`` and ``_compact``): a stage's windows in the sort's
+    order -> each distinct key's run length, compacted or not; and
+    ``compact_run`` (twin ``_compact``), the stable partition of the
+    actives of a run whose counts are given.
+
+The windows' sort stays torch.sort (``_lexsort``), as jasper_tpu's stays
+``lax.sort``.
 """
 
 from __future__ import annotations
@@ -30,6 +46,13 @@ from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows
 
 U32_MAX = M32
 _HALF = 1 << 31
+
+# kernel launches since the last reset (the main-path proof in
+# chip_smoke.py): K4m merges, K4f's run totals of sorted windows, and K4f's
+# compaction of a run whose counts are given
+MERGE_LAUNCHES = 0
+RUNS_LAUNCHES = 0
+COMPACT_LAUNCHES = 0
 
 
 def _key_cols(keys) -> list[torch.Tensor]:
@@ -117,7 +140,14 @@ def make_run(keys, counts, valid):
     csum = torch.cumsum(scounts, dim=0)
     end = torch.where(is_last, csum, csum[-1:] if csum.numel() else 0)
     run_end = torch.flip(torch.cummin(torch.flip(end, (0,)), dim=0).values, (0,))
-    return _compact(sh, skeys, torch.where(start, run_end - csum + scounts, 0))
+    return compact_run(sh, skeys, torch.where(start, run_end - csum + scounts, 0))
+
+
+def _window_order(keys, valid):
+    """(h, perm): the windows' hashes and the permutation that sorts them
+    by (invalid, h, key), the valid windows first."""
+    h = mix32(keys)
+    return h, _lexsort(_sort_cols((~valid).to(torch.int64), h, keys))
 
 
 def make_run_ones(keys, valid):
@@ -125,15 +155,14 @@ def make_run_ones(keys, valid):
     counting hot path): one multi-key sort, totals are run lengths, and
     duplicates stay interspersed as dead lanes. keys int64 [B, W] (values
     < 2^32), valid bool [B] -> (h, keys, totals)."""
-    h = mix32(keys)
-    perm = _lexsort(_sort_cols((~valid).to(torch.int64), h, keys))
-    sh, skeys, svalid = h[perm], keys[perm], valid[perm]
-    return sh, skeys, _run_lengths(sh, skeys, svalid)
+    h, perm = _window_order(keys, valid)
+    return run_totals(h, keys, valid, perm, compact=False)
 
 
 def _compact(h, keys, counts):
     """Actives (counts > 0) first, in (h, key) order; returns (h, keys,
-    counts, n_active) with n_active a 0-d tensor (no host sync).
+    counts, n_active) with n_active a 0-d tensor (no host sync). The plain
+    twin of compact_run.
 
     jasper_tpu sorts the full (dead, h, key) here without stability, which
     orders the actives uniquely only because they are distinct keys. Every
@@ -144,11 +173,40 @@ def _compact(h, keys, counts):
     return h[perm], keys[perm], counts[perm], (counts > 0).sum()
 
 
-def merge_runs(ha, ka, ca, hb, kb, cb):
+def run_totals_plain(h, keys, valid, perm, compact: bool):
+    """The plain twin of K4f's multiplicity-1 mode: the lanes gathered in
+    the sort's order ``perm``, their run lengths (_run_lengths) and, with
+    ``compact``, the actives first (_compact)."""
+    sh, skeys, svalid = h[perm], keys[perm], valid[perm]
+    totals = _run_lengths(sh, skeys, svalid)
+    return _compact(sh, skeys, totals) if compact else (sh, skeys, totals)
+
+
+def run_totals(h, keys, valid, perm, compact: bool):
+    """Windows (h [B], keys [B, W], valid [B]) and the permutation that
+    sorts them by (invalid, h, key) -> each distinct valid key's count (its
+    run length): with ``compact`` the run (h, keys, counts, n_active),
+    actives first; else the sorted lanes (h, keys, totals), totals at each
+    key's first lane and 0 elsewhere. CPU tensors -> run_totals_plain;
+    else the K4f kernel."""
+    fn = run_totals_plain if h.device.type == "cpu" else run_totals_cuda
+    return fn(h, keys, valid, perm, compact)
+
+
+def compact_run(h, keys, counts):
+    """Actives (counts > 0) first, in input order, then dead lanes;
+    returns (h, keys, counts, n_active), n_active a 0-d tensor. CPU
+    tensors -> _compact; else K4f's counts-given mode."""
+    fn = _compact if h.device.type == "cpu" else compact_run_cuda
+    return fn(h, keys, counts)
+
+
+def merge_runs_plain(ha, ka, ca, hb, kb, cb):
     """Merge two runs (each with distinct active keys) into one run of
     length len(a) + len(b): each key appears at most twice in the
     concatenation, so a total is one neighbour add, saturated at 2^32-1.
-    Returns (h, keys, counts, n_active)."""
+    Returns (h, keys, counts, n_active). The plain twin of K4m; the runs'
+    dead lanes may lie anywhere."""
     sh, skeys, scounts = _sort_by_key(torch.cat([ha, hb]),
                                       torch.cat([ka, kb]),
                                       torch.cat([ca, cb]))
@@ -157,6 +215,156 @@ def merge_runs(ha, ka, ca, hb, kb, cb):
     nxt = torch.roll(scounts, -1)
     summed = torch.clamp(scounts + torch.where(same_next, nxt, 0), max=U32_MAX)
     return _compact(sh, skeys, torch.where(same_prev, 0, summed))
+
+
+def merge_runs(ha, ka, ca, hb, kb, cb, n_a=None, n_b=None):
+    """Merge two runs into one of length len(a) + len(b): the union of
+    their actives in (h, key) order, a key in both once with its counts
+    summed (saturated at 2^32-1), then dead lanes. Returns (h, keys,
+    counts, n_active), n_active a 0-d tensor. CPU tensors ->
+    merge_runs_plain; else the K4m kernel, which takes compacted runs:
+    ``n_a`` / ``n_b`` (ints or 0-d tensors) give a compacted run's active
+    count, and a run without one is compacted first (compact_run)."""
+    if ha.device.type == "cpu":
+        return merge_runs_plain(ha, ka, ca, hb, kb, cb)
+    if n_a is None:
+        ha, ka, ca, n_a = compact_run(ha, ka, ca)
+    if n_b is None:
+        hb, kb, cb, n_b = compact_run(hb, kb, cb)
+    return merge_runs_cuda(ha, ka, ca, hb, kb, cb, n_a, n_b)
+
+
+# -- the CUDA wrappers (csrc/runs.cu) -----------------------------------------
+
+
+def _check_cuda(name: str, tensors) -> torch.device:
+    """Contiguity, type and device checks of a kernel's wrapper: every
+    (label, tensor, dtypes) on one CUDA device -> that device."""
+    for label, t, dtypes in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} is not contiguous")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: {label} must be {dtypes}, got {t.dtype}")
+    dev = None
+    for label, t, _ in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {label} is on {t.device}, not a CUDA device")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices")
+        dev = t.device
+    return dev
+
+
+def _check_lanes(name: str, h, keys, *per_lane) -> int:
+    """h [B], keys [B, W] with 1 <= W <= 4, every other tensor [B] -> W."""
+    B = h.shape[0]
+    if (h.dim() != 1 or keys.dim() != 2 or keys.shape[0] != B
+            or not 1 <= keys.shape[1] <= 4 or any(t.shape != h.shape for t in per_lane)):
+        raise ValueError(f"{name}: want h [B], keys [B, W<=4] and [B] lanes, got "
+                         f"{[tuple(t.shape) for t in (h, keys, *per_lane)]}")
+    return int(keys.shape[1])
+
+
+_I64 = (torch.int64,)
+
+
+def _run_out(L: int, W: int, device):
+    """Uninitialised (h, keys, counts, n_active) of a run of L lanes."""
+    return (torch.empty(L, dtype=torch.int64, device=device),
+            torch.empty((L, W), dtype=torch.int64, device=device),
+            torch.empty(L, dtype=torch.int64, device=device),
+            torch.empty((), dtype=torch.int64, device=device))
+
+
+def _launch(fn: str, lanes: int, device, *args):
+    """Launch csrc/runs.cu's ``fn`` on ``device``'s current stream (no
+    synchronise) with its tile scratch; raises if the launch was refused."""
+    from jasper_tpu_torch.table import _build
+
+    lib = _build.load()
+    tiles = -(-lanes // lib.jt_runs_tile())
+    # freed on return while the kernels may still run: the caching
+    # allocator reuses it only for work queued after them on this stream
+    scratch = torch.empty(3 * tiles + 1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, fn)(*args, scratch.data_ptr(), device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: " + lib.jt_cuda_error_string(rc).decode())
+
+
+def _ptrs(*tensors) -> list[int]:
+    return [t.data_ptr() for t in tensors]
+
+
+def _active_count(n, lanes: int, device) -> torch.Tensor:
+    """An active count (int or 0-d tensor) of a run of ``lanes`` lanes as
+    a 0-d int64 tensor on ``device``, without a host sync: an int out of
+    range raises here, a tensor's value is clamped to [0, lanes] by K4m."""
+    if not isinstance(n, torch.Tensor):
+        if not 0 <= int(n) <= lanes:
+            raise ValueError(f"an active count of {n} in a run of {lanes} lanes")
+        return torch.full((), int(n), dtype=torch.int64, device=device)
+    if n.device != device or n.numel() != 1:
+        raise ValueError(f"an active count must be one value on {device}, "
+                         f"got {tuple(n.shape)} on {n.device}")
+    return n.reshape(()).to(torch.int64)
+
+
+def merge_runs_cuda(ha, ka, ca, hb, kb, cb, n_a, n_b):
+    """Launch K4m on the current stream: runs a and b, compacted, with
+    n_a and n_b actives (ints or 0-d tensors on the card)."""
+    global MERGE_LAUNCHES
+    dev = _check_cuda("merge_runs_cuda", [
+        ("ha", ha, _I64), ("ka", ka, _I64), ("ca", ca, _I64),
+        ("hb", hb, _I64), ("kb", kb, _I64), ("cb", cb, _I64)])
+    W = _check_lanes("merge_runs_cuda", ha, ka, ca)
+    if _check_lanes("merge_runs_cuda", hb, kb, cb) != W:
+        raise ValueError(f"merge_runs_cuda: key widths {W} and {kb.shape[1]}")
+    na = _active_count(n_a, ha.shape[0], dev)
+    nb = _active_count(n_b, hb.shape[0], dev)
+    L = ha.shape[0] + hb.shape[0]
+    out = _run_out(L, W, dev)
+    if L == 0:
+        return out[:3] + (out[3].zero_(),)
+    _launch("jt_merge_runs", L, dev, *_ptrs(ha, ka, ca, hb, kb, cb, na, nb),
+            ha.shape[0], L, *_ptrs(*out), W)
+    MERGE_LAUNCHES += 1
+    return out
+
+
+def run_totals_cuda(h, keys, valid, perm, compact: bool):
+    """Launch K4f's multiplicity-1 mode on the current stream."""
+    global RUNS_LAUNCHES
+    dev = _check_cuda("run_totals_cuda", [
+        ("h", h, _I64), ("keys", keys, _I64),
+        ("valid", valid, (torch.bool, torch.uint8)), ("perm", perm, _I64)])
+    W = _check_lanes("run_totals_cuda", h, keys, valid, perm)
+    B = h.shape[0]
+    out = _run_out(B, W, dev)
+    if B:
+        flags = torch.empty(B, dtype=torch.uint8, device=dev)
+        pos = torch.empty(B, dtype=torch.int64, device=dev)
+        _launch("jt_run_totals", B, dev, *_ptrs(h, keys, valid, perm), B,
+                *_ptrs(flags, pos, *out), int(compact), W)
+        RUNS_LAUNCHES += 1
+    else:
+        out[3].zero_()
+    return out if compact else out[:3]
+
+
+def compact_run_cuda(h, keys, counts):
+    """Launch K4f's counts-given mode (_compact) on the current stream."""
+    global COMPACT_LAUNCHES
+    dev = _check_cuda("compact_run_cuda", [
+        ("h", h, _I64), ("keys", keys, _I64), ("counts", counts, _I64)])
+    W = _check_lanes("compact_run_cuda", h, keys, counts)
+    B = h.shape[0]
+    out = _run_out(B, W, dev)
+    if B == 0:
+        return out[:3] + (out[3].zero_(),)
+    _launch("jt_compact_run", B, dev, *_ptrs(h, keys, counts), B, *_ptrs(*out), W)
+    COMPACT_LAUNCHES += 1
+    return out
 
 
 def _pad_run(h, keys, counts, L: int):
@@ -168,10 +376,12 @@ def _pad_run(h, keys, counts, L: int):
 
 def flush_stage(key_parts, valid_parts):
     """Staged raw windows -> one compacted run (jasper_tpu's
-    _flush_stage_jit): make_run_ones, then _compact."""
+    _flush_stage_jit: make_run_ones, then _compact): one sort of the
+    windows, then run_totals (K4f) compacts the run lengths."""
     keys = torch.cat(list(key_parts))
     valid = torch.cat(list(valid_parts))
-    return _compact(*make_run_ones(keys, valid))
+    h, perm = _window_order(keys, valid)
+    return run_totals(h, keys, valid, perm, compact=True)
 
 
 def run_from_keys(keys: np.ndarray, counts: np.ndarray, device):
@@ -189,7 +399,7 @@ def run_from_keys(keys: np.ndarray, counts: np.ndarray, device):
     # across the link as int32 bits, widened to int64-held u32 there
     kt, ct = (torch.from_numpy(a.view(np.int32)).to(device).to(torch.int64) & M32
               for a in (kk, cc))
-    return _compact(*_sort_by_key(mix32(kt), kt, ct))
+    return compact_run(*_sort_by_key(mix32(kt), kt, ct))
 
 
 def _check_pow2(P: int) -> None:
@@ -289,7 +499,9 @@ def chunk_to_run(codes, k: int, canonical: bool = True):
     n_active), length L-k+1, n_active a 0-d tensor (jasper_tpu's
     chunk_to_run, RunAccumulator.push's feed). An empty run when L < k,
     where jasper_tpu's raises."""
-    return _compact(*make_run_ones(*_chunk_windows(codes, k, canonical)))
+    keys, valid = _chunk_windows(codes, k, canonical)
+    h, perm = _window_order(keys, valid)
+    return run_totals(h, keys, valid, perm, compact=True)
 
 
 def chunk_to_run_fast(codes, k: int, canonical: bool = True):
@@ -308,7 +520,9 @@ class RunAccumulator:
     make_run_ones sort per ``stage_lanes`` lanes. A run's size class is the
     smallest power-of-two multiple of ``unit`` lanes that holds its actives;
     two runs in one class merge, the smaller padded to the larger's length.
-    finish() merges every level into one run.
+    finish() merges every level into one run. Every level is compacted and
+    keeps its active count beside it (an int or a 0-d tensor), so a merge
+    on the card (K4m) needs no scan to find it.
 
     jasper_tpu queues runs FIFO while their active count crosses its slow
     device-to-host link, and resolves the queue in order. Here the count is
@@ -321,6 +535,7 @@ class RunAccumulator:
     def __init__(self, unit: int, stage_lanes: int):
         self.unit = max(1, unit)
         self.levels: dict[int, tuple] = {}  # size-class exponent -> run
+        self._n_active: dict[int, object] = {}  # ... -> its active count
         self.stage_lanes = stage_lanes
         self._stage: list[tuple] = []  # (keys [B, W], valid [B]) pairs
         self._staged = 0
@@ -345,43 +560,51 @@ class RunAccumulator:
             j += 1
         return j
 
-    def _truncate(self, run, n_active: int):
-        h, keys, counts = run
-        j = self._size_class(n_active)
-        L = min(self.unit << j, h.shape[0])
-        return j, (h[:L], keys[:L], counts[:L])
-
     def _merge(self, a, b):
-        """Merge two runs, padding the smaller to the larger's length (so
-        level lengths follow jasper_tpu's)."""
+        """Merge two runs (h, keys, counts, n_active), padding the smaller
+        to the larger's length (so level lengths follow jasper_tpu's)."""
         if a[0].shape[0] < b[0].shape[0]:
             a, b = b, a
         if b[0].shape[0] < a[0].shape[0]:
-            b = _pad_run(*b, a[0].shape[0])
-        return merge_runs(*a, *b)
+            b = (*_pad_run(*b[:3], a[0].shape[0]), b[3])
+        return merge_runs(*a[:3], *b[:3], n_a=a[3], n_b=b[3])
+
+    def _pop(self, j: int) -> tuple:
+        """Level j's run and its active count."""
+        return (*self.levels.pop(j), self._n_active.pop(j))
+
+    def _cascade(self, run, n_class: int):
+        """Add a compacted run (h, keys, counts, n_active) whose size class
+        holds ``n_class`` lanes, merging down the size classes."""
+        while True:
+            j = self._size_class(n_class)
+            L = min(self.unit << j, run[0].shape[0])
+            h, keys, counts, n_act = run
+            if j not in self.levels:
+                self.levels[j] = (h[:L], keys[:L], counts[:L])
+                self._n_active[j] = n_act
+                return
+            run = self._merge(self._pop(j), (h[:L], keys[:L], counts[:L], n_act))
+            n_class = int(run[3])
 
     def push(self, h, keys, counts, n_act):
         """Add a compacted run (actives first, n_act of them) to the ladder,
         merging down the size classes (a stage flush's output, a partition
         slice, or run_from_keys's filtered keys)."""
-        while True:
-            j, run = self._truncate((h, keys, counts), int(n_act))
-            if j not in self.levels:
-                self.levels[j] = run
-                return
-            h, keys, counts, n_act = self._merge(self.levels.pop(j), run)
+        self._cascade((h, keys, counts, n_act), int(n_act))
 
     def push_uncompacted(self, h, keys, counts):
         """Add a run whose dead lanes may be interspersed (jasper_tpu's
         push_uncompacted, the mesh ladders' fold): its size class comes from
-        its lane count, and the first merge compacts it."""
-        self.push(h, keys, counts, h.shape[0])
+        its lane count, as jasper_tpu's does, and it is compacted first
+        (compact_run: K4f on the card), so that it keeps its length."""
+        self._cascade(compact_run(h, keys, counts), h.shape[0])
 
     def pop_level_runs(self) -> list[tuple]:
-        """Flush the stage and empty the ladder: its level runs, in level
-        order."""
+        """Flush the stage and empty the ladder: its level runs (h, keys,
+        counts), in level order."""
         self.flush_stage()
-        return [self.levels.pop(j) for j in sorted(self.levels)]
+        return [self._pop(j)[:3] for j in sorted(self.levels)]
 
     def n_resident_lanes(self) -> int:
         return sum(r[0].shape[0] for r in self.levels.values()) + self._staged
@@ -396,19 +619,13 @@ class RunAccumulator:
         """Merge all levels into one compacted run; returns (h, keys,
         counts, n_active) or None if nothing was pushed."""
         self.flush_stage()
-        runs = [self.levels.pop(j) for j in sorted(self.levels)]
+        runs = [self._pop(j) for j in sorted(self.levels)]
         if not runs:
             return None
         cur = runs[0]
-        n_active = None
         for r in runs[1:]:
-            h, keys, counts, n_active = self._merge(cur, r)
-            cur = (h, keys, counts)
-        h, keys, counts = cur
-        if n_active is None:
-            # a lone level may be an uncompacted push (push_uncompacted):
-            # compact it, so that the actives lead as build_table expects
-            h, keys, counts, n_active = _compact(h, keys, counts)
+            cur = self._merge(cur, r)
+        h, keys, counts, n_active = cur
         return h, keys, counts, int(n_active)
 
 

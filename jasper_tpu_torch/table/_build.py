@@ -93,5 +93,22 @@ def load() -> ctypes.CDLL:
         ]
         lib.jt_cuda_error_string.restype = ctypes.c_char_p
         lib.jt_cuda_error_string.argtypes = [ctypes.c_int]
+        bind_runs(lib)
         _lib = lib
         return _lib
+
+
+def bind_runs(lib: ctypes.CDLL) -> None:
+    """Argument types of csrc/runs.cu's entries (K4m, K4f): pointers, then
+    the lane counts, the outputs, the key width, the tile scratch, the
+    device and the stream."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.jt_runs_tile.restype = i32
+    lib.jt_runs_tile.argtypes = []
+    for name, args in (
+            ("jt_merge_runs", [p] * 8 + [i64, i64] + [p] * 4 + [i32]),
+            ("jt_run_totals", [p] * 4 + [i64] + [p] * 6 + [i32, i32]),
+            ("jt_compact_run", [p] * 3 + [i64] + [p] * 4 + [i32])):
+        fn = getattr(lib, name)
+        fn.restype = i32
+        fn.argtypes = args + [p, i32, p]

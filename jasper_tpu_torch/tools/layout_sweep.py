@@ -54,7 +54,7 @@ import sys
 import numpy as np
 import torch
 
-from jasper_tpu_torch.count.sorted_runs import _compact, _key_cols, _lexsort, make_run_ones
+from jasper_tpu_torch.count.sorted_runs import _key_cols, _lexsort, flush_stage
 from jasper_tpu_torch.ops.hashing import M32
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.table import probe
@@ -98,7 +98,7 @@ def _k1_row(B: int, device) -> dict:
     rng = np.random.default_rng(1)
     genome = torch.from_numpy(rng.integers(0, 4, size=B + K - 1).astype(np.uint8)).to(device)
     keys, valid = canonical_windows_fast(genome, K)
-    h, kk, cc, n_act = _compact(*make_run_ones(keys, valid))
+    h, kk, cc, n_act = flush_stage([keys], [valid])
     tab = build_table((h, kk, cc, int(n_act)), K)
     other = torch.from_numpy(rng.integers(0, 4, size=B + K - 1).astype(np.uint8)).to(device)
     absent, _ = canonical_windows_fast(other, K)

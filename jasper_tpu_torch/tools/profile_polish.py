@@ -7,7 +7,8 @@ A random genome of genome_kb kb (2000 by default) from numpy's
 default_rng(0), drawn as jasper_tpu's tool draws it, and a draft with a
 substitution every err_every bases (4000), the first at err_every / 2. The
 table holds the genome's canonical k-mers (k = 25) at count 40, built on
-the device through make_run_ones, its compaction and build_table. Then the
+the device through flush_stage (the windows' sort, run totals and
+compaction) and build_table. Then the
 device scan (DeviceScanner.prepare: extraction, the CUDA bucket probe K1,
 the classification) of the whole draft, one DevicePolishEngine.run_pass
 with fixes (the scan, the host walk at the flagged windows, the repairs),
@@ -37,7 +38,7 @@ import time
 import numpy as np
 import torch
 
-from jasper_tpu_torch.count.sorted_runs import _compact, make_run_ones
+from jasper_tpu_torch.count.sorted_runs import flush_stage
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine, DeviceScanner
 from jasper_tpu_torch.polish.engine import CountSource
@@ -74,7 +75,7 @@ def main(argv=None) -> dict:
 
     # table = the genome's k-mers at depth 40
     keys, valid = canonical_windows_fast(torch.from_numpy(gcodes).to(device), k)
-    h, kk, cc, n_act = _compact(*make_run_ones(keys, valid))
+    h, kk, cc, n_act = flush_stage([keys], [valid])
     tab = build_table((h, kk, cc * 40, int(n_act)), k)
     records = int(n_act)
     host = HostKmerTable(k, table_to_numpy(tab))
