@@ -45,7 +45,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      calls), with the fastest full-size stage flush split into its
      sorted_runs steps (mix32, the sort passes, K4f's run_totals), the
      merges' and flushes' totals beside the all-torch ladder's figures
-     (PERF.md, another call); the
+     (PERF.md, another call); the count's ingest wait (blocked on the
+     parser, in the codes' copies) beside its walls and device ms; the
      peak device memory of every sorting step against
      the resident lanes; and the share of injected errors repaired. Then the
      probe at this path's shape (one 4 M-window tile of the draft against
@@ -161,13 +162,18 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      seeded synthetic runs made on the card: W = 2 and 3; 2^20, 2^24 and
      2^26 lanes a side; key overlaps of 0, 50 and 100%; counts that
      saturate at 2^32-1; unequal lengths padded as the ladder pads; an
-     empty run; two uncompacted make_run_ones runs; stage-shaped window
-     sets of 2^24 and 2^26 lanes with a run of 10^5 equal windows, in both
-     output modes. Gates: actives and n_active bit for bit, every dead
-     lane's count 0, the launch counters moved, a count saturated, and
-     torch.unique_consecutive's counts equal K4f's. Reports each case's ms,
-     bound (tools/measure.py:bound), share, the plain twin's ms and K4f's
-     unique_consecutive ms.
+     empty run; two uncompacted make_run_ones runs; an equal-key pair on
+     the two sides of a K4m tile boundary; stage-shaped window sets of
+     2^24 and 2^26 lanes with a run of 10^5 equal windows (once starting a
+     lane before a K4f tile boundary, so that it spans more tiles than one
+     look-back window), in both output modes. Gates: actives and n_active
+     bit for bit, every dead lane's count 0, the launch counters moved, a
+     count saturated, and torch.unique_consecutive's counts equal K4f's.
+     Reports each case's ms, bound (tools/measure.py:bound), share, the
+     plain twin's ms, and for K4f unique_consecutive's ms and that of a
+     gather-only yardstick of its reads (GATHER_FLOOR_CU); its line also
+     quotes the earlier three-pass design's ms from PERF.md, labelled as
+     not measured in this run.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -188,6 +194,7 @@ import shutil
 import subprocess
 import sys
 import time
+from dataclasses import asdict
 
 import numpy as np
 
@@ -288,23 +295,42 @@ def compare_probe(tab, keys, valid, iters=(20, 5), owner_bits: int = 0) -> dict:
     return res
 
 
+def build_so(source: str, name: str):
+    """A CUDA source of this script's own (not the port's) built with the
+    checkout's nvcc flags, csrc/ on the include path, into the kernels'
+    build directory, keyed by a hash of the source and the flags as
+    _build.library_path keys the port's library -> its ctypes.CDLL."""
+    import ctypes
+    import hashlib
+
+    from jasper_tpu_torch.table import _build
+
+    key = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + "\0" + source).encode())
+    base = os.path.join(_build.BUILD_DIR, f"{name}_{key.hexdigest()[:16]}")
+    if not os.path.exists(base + ".so"):
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        with open(base + ".cu", "w") as f:
+            f.write(source)
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+                            "-o", base + ".so", base + ".cu"],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc {name} failed:\n{r.stderr}")
+    return ctypes.CDLL(base + ".so")
+
+
 def other_probe(path: str):
-    """``--ab-probe``: build another version of csrc/probe.cu with the
-    checkout's nvcc flags and bind its jt_probe_lookup (the same C
-    interface, owner_bits 0) -> lookup(tab, keys, valid) on the current
-    stream."""
+    """``--ab-probe``: build another version of csrc/probe.cu (build_so)
+    and bind its jt_probe_lookup (the same C interface, owner_bits 0) ->
+    lookup(tab, keys, valid) on the current stream."""
     import ctypes
 
     import torch
 
-    from jasper_tpu_torch.table import _build, probe
+    from jasper_tpu_torch.table import probe
 
-    so = os.path.join(_build.BUILD_DIR, "libjt_ab_probe.so")
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise RuntimeError(f"nvcc {path} failed:\n{r.stderr}")
-    fn = ctypes.CDLL(so).jt_probe_lookup
+    with open(path) as f:
+        fn = build_so(f.read(), "ab_probe").jt_probe_lookup
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -1199,6 +1225,7 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
             raise AssertionError(f"{key}: {shown[0]} != {shown[1]}")
     splits = [(m, t - (stages[i - 1][0] if i else 0.0))
               for i, (t, m) in enumerate(stages)]
+    device_ms = events.summary()
     out = {"records": records, "threshold": thr, "q_before": res["q_before"],
            "q_after": res["q_after"], "gates": sorted(gates) or "not at this size",
            "partitions": parts[0], "passes": parts[1],
@@ -1207,7 +1234,8 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
            "resident_lanes_after_count": resident,
            "probe_launches": launches, "k4": k4, "peak_device_bytes": peak,
            "wall_s": wall, "stage_seconds_since_previous": splits,
-           "device_ms": events.summary(), "k4_device_ms": k4_device_ms(events, torch_ms),
+           "device_ms": device_ms, "k4_device_ms": k4_device_ms(events, torch_ms),
+           "ingest": ingest_report(res["ingest"], stages, device_ms),
            "k7_ms": cuda_ms(lambda: histogram_rows(scanner.tab, k), 5),
            "table_bytes": int(scanner.tab.numel() * 4),
            "count_peak_memory": peaks.check(counter.PEAK_LANE_MULTIPLE), "card": card}
@@ -1215,6 +1243,30 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     with open(asm, "rb") as f:
         out["_draft"] = b"".join(f.read().split(b"\n")[1:])
     out["_scanner"] = scanner
+    return out
+
+
+def ingest_report(ingest, stages, device_ms: dict) -> dict:
+    """The count's ingest wait (run_pipeline's ``ingest``, a
+    count/counter.py:IngestStats: blocked on the parser's queue, and in the
+    codes' host-to-device copies with their wait for the device work
+    queued before them) beside the count's wall (its start to the driver's
+    ingest line), its counting pass's (its start to the end of device
+    counting or of the last partitioned pass) and the device ms of its
+    extraction, flushes (a split flush holds a stage flush) and merges."""
+    start = next((at for at, m in stages if m.startswith("count: start")), None)
+    ends = [at for at, m in stages if m.startswith("count: ingest")]
+    passes = [at for at, m in stages
+              if m.startswith("count: device counting done") or PASS_RE.match(m)]
+    ms = {n: device_ms.get(n, {}).get("total_ms", 0.0)
+          for n in ("extract_windows", "stage_flush", "split_flush", "ladder_merge")}
+    busy = (ms["extract_windows"] + (ms["split_flush"] or ms["stage_flush"])
+            + ms["ladder_merge"])
+    out = {**(asdict(ingest) if ingest is not None else {}),  # None: no count ran
+           "count_wall_s": ends[0] - start if start is not None and ends else None,
+           "pass_wall_s": passes[-1] - start if start is not None and passes else None,
+           "count_device_ms": busy}
+    log("count ingest " + json.dumps(out))
     return out
 
 
@@ -1622,19 +1674,101 @@ K4_MAIN = 1 << 26  # the main path's largest merge side and race20's flush
 # (PERF.md, an earlier call on an NVIDIA H100 80GB HBM3 at 700.00 W)
 ALL_TORCH_COUNT_MS = {"race20": {"stage_flush": 4208.6, "ladder_merge": 1513.8},
                       "race100": {"split_flush": 20950.3, "ladder_merge": 29184.8}}
-MERGE_DESIGN = ("merge path in tiles of 1024 merged lanes: a thread per tile "
-                "diagonal binary-searches the split (a first on equal keys), a "
-                "block stages its tile and the lane on each side in shared memory, "
-                "a thread merges 4 lanes from its sub-diagonal, drops a b lane equal "
-                "to the a lane before it and sums an a lane with an equal b lane "
-                "after it; a counting pass, one block's scan of the tile counts, a "
-                "writing pass; n_a and n_b read on the card, clamped to the runs' lanes")
-TOTALS_DESIGN = ("the sort's permutation and the unsorted lanes in, the gathers "
-                 "fused: a block flags its tile's representatives (valid, unequal "
-                 "to the lane before) from shared memory and counts them, one "
-                 "block scans the tile counts, a pass stores the representatives' "
-                 "positions compacted, a total is the next position (or the valid "
-                 "lanes' end) minus its own; no cummin")
+MERGE_DESIGN = ("one pass, merge path in tiles of 2048 merged lanes: a thread per "
+                "tile diagonal binary-searches the split (a first on equal keys); a "
+                "block takes the next tile by an atomic ticket, loads its ranges of "
+                "a and b (and the lane on each side) once, coalesced, into shared "
+                "memory, a thread merges 8 lanes from its sub-diagonal, drops a b "
+                "lane equal to the a lane before it and sums an a lane with an equal "
+                "b lane after it; a block scan ranks the survivors, a decoupled "
+                "look-back gives the tile's offset, and warps store the survivors' "
+                "h, keys and counts as contiguous words; a dead lane gets its count "
+                "only; n_a and n_b read on the card, clamped to the runs' lanes")
+TOTALS_DESIGN = ("one pass in tiles of 1024 sorted lanes: the valid lanes counted "
+                 "coalesced first (they sort first, so lane p is valid iff p < "
+                 "n_valid); a block takes the next tile by an atomic ticket, reads "
+                 "the permutation coalesced and one key row a lane at random, "
+                 "recomputes h = mix32(key), flags the representatives (valid, "
+                 "unequal to the lane before) by ballots, a decoupled look-back "
+                 "gives the tile's offset, and a total is the next "
+                 "representative's position (or the valid end) minus its own; a "
+                 "run that crosses tiles gets each later tile's leading valid "
+                 "lanes added by a kernel over the tiles; no flags or positions "
+                 "arrays, no cummin")
+# The main shapes' ms in the three-pass design that preceded these, quoted
+# from PERF.md (not measured by this script): phase 18's line shows them
+# beside this run's times, labelled so; the kernels line does not.
+EARLIER_K4 = {"source": "PERF.md, the three-pass design's own calls, not this run",
+              "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+              "merge_runs_ms": 5.266, "run_totals_ms": 9.369}
+# A yardstick of K4f's access pattern, built beside the kernels in phase
+# 18 and used nowhere in the port: every valid sorted lane reads perm[p]
+# and its key row keys[perm[p]] (as K4f does) and writes the row to out[p].
+GATHER_FLOOR_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <int W>
+__global__ void __launch_bounds__(256) gather_rows(const int64_t* __restrict__ keys,
+    const int64_t* __restrict__ perm, int64_t n, int64_t* __restrict__ out) {
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * 1024 + threadIdx.x;
+  int64_t src[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) src[s] = p0 + s * 256 < n ? perm[p0 + s * 256] : 0;
+  int64_t w[4][W];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      w[s][j] = __ldg(reinterpret_cast<const long long*>(keys + src[s] * W + j));
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (p0 + s * 256 < n)
+#pragma unroll
+      for (int j = 0; j < W; ++j) out[(p0 + s * 256) * W + j] = w[s][j];
+}
+extern "C" int jt_gather_rows(const void* keys, const void* perm, int64_t n, void* out,
+                              int W, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((n + 1023) / 1024);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto k = static_cast<const int64_t*>(keys);
+  auto p = static_cast<const int64_t*>(perm);
+  auto o = static_cast<int64_t*>(out);
+  if (n <= 0) return 0;
+  if (W == 2) gather_rows<2><<<blocks, 256, 0, st>>>(k, p, n, o);
+  else if (W == 3) gather_rows<3><<<blocks, 256, 0, st>>>(k, p, n, o);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def gather_rows_fn():
+    """GATHER_FLOOR_CU (build_so) -> rows(keys, perm, n) on the current
+    stream."""
+    import ctypes
+
+    import torch
+
+    fn = build_so(GATHER_FLOOR_CU, "gather_floor").jt_gather_rows
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p]
+
+    def rows(keys, perm, n: int):
+        out = torch.empty((n, keys.shape[1]), dtype=torch.int64, device=keys.device)
+        if fn(keys.data_ptr(), perm.data_ptr(), n, out.data_ptr(), keys.shape[1],
+              torch.cuda.current_stream(keys.device).cuda_stream):
+            raise RuntimeError("jt_gather_rows failed")
+        return out
+
+    return rows
+
+
+def k4_tile(entry: int) -> int:
+    """csrc/runs.cu's tile: merged lanes of K4m (0), lanes of K4f (1)."""
+    from jasper_tpu_torch.table import _build
+
+    return _build.load().jt_runs_tile(entry)
 
 
 def _u32(shape, gen, device, lo: int = 0):
@@ -1644,10 +1778,20 @@ def _u32(shape, gen, device, lo: int = 0):
                          dtype=torch.int64)
 
 
+def synthetic_keys(idx, W: int):
+    """One distinct key [W] per idx: word 0 idx * 0x9E3779B1 mod 2^32 (odd,
+    so one key per idx), the other words functions of idx."""
+    import torch
+
+    words = [(idx * 0x9E3779B1) & M32]
+    for j in range(1, W):
+        words.append((((idx >> (5 * j)) * (0x85EBCA6B + 2 * j)) ^ idx) & M32)
+    return torch.stack(words, 1)
+
+
 def synthetic_run(idx, W: int, L: int, gen, device):
-    """A compacted run of one distinct key per idx (int64 on the card):
-    word 0 idx * 0x9E3779B1 mod 2^32 (odd, so one key per idx), the other
-    words functions of idx; sorted by (h, key) with h = mix32; counts
+    """A compacted run of one distinct key per idx (int64 on the card,
+    synthetic_keys), sorted by (h, key) with h = mix32; counts
     random in [1, 2^32-2] but near 2^32-1 for every 16th idx, so that a key
     on both sides saturates (and a merged count of 2^32-1 is a saturated
     sum); padded to L lanes with dead lanes of random h and keys."""
@@ -1656,10 +1800,7 @@ def synthetic_run(idx, W: int, L: int, gen, device):
     from jasper_tpu_torch.count import sorted_runs as sr
     from jasper_tpu_torch.ops.hashing import mix32
 
-    words = [(idx * 0x9E3779B1) & M32]
-    for j in range(1, W):
-        words.append((((idx >> (5 * j)) * (0x85EBCA6B + 2 * j)) ^ idx) & M32)
-    keys = torch.stack(words, 1)
+    keys = synthetic_keys(idx, W)
     counts = torch.where(idx % 16 == 0, M32 - 1 - idx % 1000,
                          1 + _u32((idx.shape[0],), gen, device) % (M32 - 1))
     h, keys, counts = sr._sort_by_key(mix32(keys), keys, counts)
@@ -1684,14 +1825,53 @@ def same_run(got, want, what: str) -> int:
     return err
 
 
+def sorts_before(ids, key0, W: int):
+    """Which synthetic keys of ``ids`` sort before key0 [W] in run order
+    (h, then the key words msb-first)."""
+    from jasper_tpu_torch.ops.hashing import mix32
+
+    ks = synthetic_keys(ids, W)
+    hh, h0 = mix32(ks), mix32(key0.reshape(1, W))[0]
+    lt, eq = hh < h0, hh == h0
+    for j in range(W - 1, -1, -1):
+        lt |= eq & (ks[:, j] < key0[j])
+        eq &= ks[:, j] == key0[j]
+    return lt
+
+
+def straddle_pair(ia, ib, shared: int, W: int, device):
+    """ib (whose first ``shared`` idx are in ia) with b-only keys added that
+    sort before one shared key, so that the merge of a and b puts that
+    key's a lane last in a K4m tile and its equal b lane first in the next
+    -> (ib, the shared key's idx)."""
+    import torch
+
+    from jasper_tpu_torch.ops.hashing import mix32
+
+    tile = k4_tile(0)
+    hs = mix32(synthetic_keys(ib[:shared], W))
+    idx = ib[int(torch.nonzero(hs >= 1 << 31)[0, 0])]  # half the keys sort below it
+    key0 = synthetic_keys(idx.reshape(1), W)[0]
+    before = int(sorts_before(ia, key0, W).sum()) + int(sorts_before(ib, key0, W).sum())
+    d = -(before + 1) % tile
+    top = int(max(ia.max(), ib.max())) + 1
+    fresh = torch.arange(top, top + 64 * tile, device=device)
+    add = fresh[sorts_before(fresh, key0, W)][:d]
+    if add.shape[0] != d:
+        raise AssertionError(f"straddle: {add.shape[0]} of {d} keys found")
+    return torch.cat([ib, add]), int(idx)
+
+
 def merge_case(W: int, La: int, Lb: int, overlap: float, gen, device, card: str,
-               n_b=None, pad_to=None) -> dict:
+               n_b=None, pad_to=None, straddle: bool = False) -> dict:
     """K4m on two synthetic runs (3/4 of each active, a share ``overlap``
     of b's keys in a) against merge_runs_plain on the same tensors; b is
-    padded to ``pad_to`` lanes as the ladder pads the smaller run. The
-    bound: the active lanes read once, the output's actives written once
-    (8 (W + 2) B a lane) and each dead output lane's count (8 B; its h
-    and keys are free), against 2 (W + 1) int32 compares a lane."""
+    padded to ``pad_to`` lanes as the ladder pads the smaller run; with
+    ``straddle`` b gets keys that put one equal pair on the two sides of a
+    tile boundary of the merge (checked on the runs). The bound: the
+    active lanes read once, the output's actives written once (8 (W + 2) B
+    a lane) and each dead output lane's count (8 B; its h and keys are
+    free), against 2 (W + 1) int32 compares a lane."""
     import torch
 
     from jasper_tpu_torch.count import sorted_runs as sr
@@ -1701,9 +1881,20 @@ def merge_case(W: int, La: int, Lb: int, overlap: float, gen, device, card: str,
     shared = int(overlap * min(n_a, n_b))
     ia = torch.arange(n_a, device=device)
     ib = torch.cat([ia[:shared], torch.arange(n_a, n_a + n_b - shared, device=device)])
+    if straddle:
+        ib, idx0 = straddle_pair(ia, ib, shared, W, device)
+        n_b = ib.shape[0]
     a = synthetic_run(ia, W, La, gen, device)
     b = synthetic_run(ib, W, Lb, gen, device)
     del ia, ib
+    at = None
+    if straddle:  # the pair's merged positions i + j and i + j + 1
+        w0 = (idx0 * 0x9E3779B1) & M32
+        at = (int(torch.nonzero(a[1][:n_a, 0] == w0)[0, 0])
+              + int(torch.nonzero(b[1][:n_b, 0] == w0)[0, 0]) + 1)
+        if at % k4_tile(0):
+            raise AssertionError(f"straddle: the pair's b lane merges at {at}, "
+                                 f"not at a tile start")
     if pad_to:
         b = sr._pad_run(*b, pad_to)
     what = f"K4m W={W} {La}+{b[0].shape[0]} lanes, overlap {overlap}"
@@ -1724,7 +1915,8 @@ def merge_case(W: int, La: int, Lb: int, overlap: float, gen, device, card: str,
     del a, b
     torch.cuda.empty_cache()
     return {"kernel": "K4m", "W": W, "lanes_a": La, "lanes_b": L - La, "n_a": n_a,
-            "n_b": n_b, "overlap": overlap, "n_active": n, "saturated": saturated,
+            "n_b": n_b, "overlap": overlap, "straddle_at": at, "n_active": n,
+            "saturated": saturated,
             "max_abs_err": err, "ms": ms, "plain_ms": plain, **bnd,
             "share_of_bound": bnd["bound_ms"] / ms, "card": card}
 
@@ -1744,21 +1936,66 @@ def window_set(W: int, B: int, gen, device):
     return keys, valid
 
 
-def totals_case(W: int, B: int, gen, device, card: str) -> dict:
-    """K4f (multiplicity 1) in both output modes on a window set against
-    run_totals_plain on the same tensors; the library yardstick is
-    torch.unique_consecutive(dim=0, return_counts=True) over the sorted
-    valid lanes' stacked (h, keys), whose counts must equal the compacted
-    totals. The bound: perm and valid read once, h and keys of the valid
-    lanes once, the run's actives written once (8 (W + 2) B a lane) and
-    each dead lane's count (8 B), against W + 1 int32 compares a lane; the
-    counts-given mode's: the counts read once, h and keys of the actives
-    once, and the same output."""
+def run_start(keys, valid, key0) -> int:
+    """The sorted lane (_window_order) where key0's run of windows starts."""
     import torch
 
     from jasper_tpu_torch.count import sorted_runs as sr
 
+    _h, perm = sr._window_order(keys, valid)
+    eq = (keys[perm] == key0).all(1) & valid[perm]
+    return int(torch.nonzero(eq)[0, 0])
+
+
+def straddle_window_set(W: int, B: int, gen, device):
+    """window_set's windows with some lanes rekeyed so that its
+    K4_REPEAT-window run starts one sorted lane before a K4f tile boundary
+    (it then spans more tiles than one warp's look-back window of 32)."""
+    import torch
+
+    from jasper_tpu_torch.ops.hashing import mix32
+
+    tile = k4_tile(1)
+    if K4_REPEAT <= 33 * tile:
+        raise AssertionError(f"a run of {K4_REPEAT} spans no 33 tiles of {tile}")
     keys, valid = window_set(W, B, gen, device)
+    key0 = keys[7].clone()
+    h = mix32(keys)
+    h0 = int(h[7])
+    s0 = run_start(keys, valid, key0)
+    d = -(s0 + 1) % tile
+    if d:  # d valid lanes that sort after the run take a key that sorts before
+        low = int(torch.nonzero(valid & (h < h0))[0, 0])
+        movers = torch.nonzero(valid & (h > h0))[:d, 0]
+        keys[movers] = keys[low].clone()
+    at = run_start(keys, valid, key0)
+    if (at + 1) % tile:
+        raise AssertionError(f"straddle: the run starts at {at}, not a lane before a tile")
+    return keys, valid, at
+
+
+def totals_case(W: int, B: int, gen, device, card: str, straddle: bool = False) -> dict:
+    """K4f (multiplicity 1) in both output modes on a window set against
+    run_totals_plain on the same tensors (with ``straddle`` its long run
+    starts a lane before a tile boundary); the library yardstick is
+    torch.unique_consecutive(dim=0, return_counts=True) over the sorted
+    valid lanes' stacked (h, keys), whose counts must equal the compacted
+    totals, and the access pattern's is GATHER_FLOOR_CU's gather of the
+    valid lanes' key rows. The bound: perm and valid read once, the valid
+    lanes' key rows once (8 W B each; h is a function of the key, which
+    the kernel recomputes, so no h is read), the run's actives written
+    once (8 (W + 2) B a lane) and each dead lane's count (8 B), against W +
+    1 int32 compares a lane; the counts-given mode's: the counts read once,
+    h and keys of the actives once, and the same output."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+
+    at = None
+    if straddle:
+        keys, valid, at = straddle_window_set(W, B, gen, device)
+    else:
+        keys, valid = window_set(W, B, gen, device)
     h, perm = sr._window_order(keys, valid)
     err = 0
     for compact in (True, False):
@@ -1787,8 +2024,12 @@ def totals_case(W: int, B: int, gen, device, card: str) -> dict:
     ms_unc = cuda_ms(lambda: sr.run_totals_cuda(h, keys, valid, perm, False), 3 if big else 10)
     plain = cuda_ms(lambda: sr.run_totals_plain(h, keys, valid, perm, True), 1 if big else 3)
     lib_ms = cuda_ms(lambda: torch.unique_consecutive(stacked, dim=0, return_counts=True), 1)
+    rows = gather_rows_fn()
+    if not torch.equal(rows(keys, perm, nv), keys[perm][:nv]):
+        raise AssertionError("the gather yardstick's rows differ")
+    floor_ms = cuda_ms(lambda: rows(keys, perm, nv), 3 if big else 10)
     out_bytes = n * 8 * (W + 2) + (B - n) * 8
-    bnd = bound(B * (8 + 1) + nv * 8 * (W + 1) + out_bytes, B * (W + 1))
+    bnd = bound(B * (8 + 1) + nv * 8 * W + out_bytes, B * (W + 1))
     del stacked
     # counts given (compact_run, _compact's kernel) on the sorted lanes
     sh, sk, st = sr.run_totals_cuda(h, keys, valid, perm, False)
@@ -1800,8 +2041,9 @@ def totals_case(W: int, B: int, gen, device, card: str) -> dict:
     del sh, sk, st, keys, valid, h, perm
     torch.cuda.empty_cache()
     return {"kernel": "K4f", "W": W, "lanes": B, "n_active": n, "valid": nv,
-            "max_abs_err": max(err, cerr), "ms": ms, "ms_uncompacted": ms_unc,
-            "plain_ms": plain, "library_ms": lib_ms, **bnd,
+            "run_starts_at": at, "max_abs_err": max(err, cerr), "ms": ms,
+            "ms_uncompacted": ms_unc, "plain_ms": plain, "library_ms": lib_ms,
+            "gather_floor_ms": floor_ms, **bnd,
             "share_of_bound": bnd["bound_ms"] / ms,
             "counts_given": {"ms": c_ms, "plain_ms": c_plain, **c_bnd,
                              "share_of_bound": c_bnd["bound_ms"] / c_ms},
@@ -1814,12 +2056,14 @@ def phase_runs(device, card: str, seed: int) -> dict:
     on seeded synthetic runs made on the card: W = 2 and 3, 2^20, 2^24 and
     2^26 lanes a side, key overlaps of 0, 50 and 100%, counts that
     saturate, runs of unequal length (padded as the ladder pads them), an
-    empty run and two uncompacted make_run_ones runs; K4f on stage-shaped
-    window sets of 2^24 and 2^26 lanes with a run of 10^5 equal windows,
-    in both output modes, and its counts-given mode. Gates also that the
-    launch counters moved and that saturation fired. Reports each case's
-    ms (CUDA events), bound, share, the plain twin's ms and, for K4f,
-    torch.unique_consecutive's."""
+    empty run, two uncompacted make_run_ones runs and an equal-key pair on
+    the two sides of a tile boundary; K4f on stage-shaped window sets of
+    2^24 and 2^26 lanes with a run of 10^5 equal windows (once starting a
+    lane before a tile boundary), in both output modes, and its
+    counts-given mode. Gates also that the launch counters moved and that
+    saturation fired. Reports each case's ms (CUDA events), bound, share,
+    the plain twin's ms and, for K4f, torch.unique_consecutive's and the
+    gather yardstick's."""
     import torch
 
     from jasper_tpu_torch.count import sorted_runs as sr
@@ -1832,6 +2076,7 @@ def phase_runs(device, card: str, seed: int) -> dict:
               for W in (2, 3) for side in K4_SIDES for ov in (0.0, 0.5, 1.0)]
     merges.append(merge_case(2, 1 << 24, 1 << 23, 0.5, gen, device, card, pad_to=1 << 24))
     merges.append(merge_case(2, 1 << 20, 1 << 20, 0.0, gen, device, card, n_b=0))
+    merges.append(merge_case(2, 1 << 20, 1 << 20, 0.5, gen, device, card, straddle=True))
     # two uncompacted runs (make_run_ones: K4f on the card): the dispatcher
     # compacts each (K4f, counts given) before K4m
     ra = sr.make_run_ones(*window_set(2, 1 << 22, gen, device))
@@ -1841,6 +2086,7 @@ def phase_runs(device, card: str, seed: int) -> dict:
     del ra, rb
     totals = [totals_case(W, B, gen, device, card)
               for W, B in ((2, K4_STAGES[0]), (2, K4_STAGES[1]), (3, K4_STAGES[0]))]
+    totals.append(totals_case(2, K4_STAGES[0], gen, device, card, straddle=True))
     moved = {"merge_launches": sr.MERGE_LAUNCHES - before[0],
              "runs_launches": sr.RUNS_LAUNCHES - before[1],
              "compact_launches": sr.COMPACT_LAUNCHES - before[2]}
@@ -1850,7 +2096,8 @@ def phase_runs(device, card: str, seed: int) -> dict:
         raise AssertionError("phase 18: no merge saturated a count")
     torch.cuda.empty_cache()
     out = {"merges": merges, "totals": totals, "uncompacted_merge_err": unc,
-           "launches": moved, "seconds": time.perf_counter() - t0, "card": card}
+           "launches": moved, "seconds": time.perf_counter() - t0, "card": card,
+           "earlier_design_quoted": EARLIER_K4}
     log("k4 kernels " + json.dumps(out))
     return out
 
@@ -1861,7 +2108,8 @@ def k4_rows(runs: dict, drivers: list) -> list[dict]:
     flush of 2^26 lanes), their launches summed over the driver paths."""
     m = next(r for r in runs["merges"]
              if (r["W"], r["lanes_a"], r["overlap"]) == (2, K4_MAIN, 0.5))
-    t = next(r for r in runs["totals"] if (r["W"], r["lanes"]) == (2, K4_MAIN))
+    t = next(r for r in runs["totals"]
+             if (r["W"], r["lanes"], r["run_starts_at"]) == (2, K4_MAIN, None))
     rows = []
     for name, r, key, line, library, design in (
             ("merge_runs", m, "merge_launches", "jasper_tpu/count/sorted_runs.py:136",

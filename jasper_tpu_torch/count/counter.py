@@ -47,6 +47,8 @@ streams (-g) and SAM/BAM through the Python parser, their only one.
 from __future__ import annotations
 
 import os
+import time
+from dataclasses import dataclass
 from typing import Iterable
 
 import numpy as np
@@ -146,11 +148,40 @@ def partition_resident_bytes(device: torch.device) -> int:
     return env if env is not None else int(available_bytes(device) * RESIDENT_SHARE)
 
 
-def _prefetch(it, depth: int = 3):
+@dataclass
+class IngestStats:
+    """Host seconds one count spent waiting for its input: blocked on
+    _prefetch's queue, i.e. on the FASTQ parser's thread (queue_wait_s),
+    and in the pageable host-to-device copies of the code chunks
+    (codes_copy_s: the copy plus its wait for the device work queued on the
+    stream before it); ``chunks`` counts the copies. It says how much of a
+    count pass the device work could reach at all."""
+
+    queue_wait_s: float = 0.0
+    codes_copy_s: float = 0.0
+    chunks: int = 0
+
+    def line(self) -> str:
+        """The driver's stage message."""
+        return (f"count: ingest waited {self.queue_wait_s:.3f} s on the parser, "
+                f"{self.codes_copy_s:.3f} s in {self.chunks} code copies "
+                f"(each with the wait for the device work queued before it)")
+
+    def upload(self, codes: np.ndarray, device) -> torch.Tensor:
+        """A code chunk on ``device`` (a pageable copy), its seconds counted."""
+        t0 = time.perf_counter()
+        out = torch.from_numpy(codes).to(device)
+        self.codes_copy_s += time.perf_counter() - t0
+        self.chunks += 1
+        return out
+
+
+def _prefetch(it, ingest: IngestStats, depth: int = 3):
     """Run an iterator on a background thread, `depth` items ahead, so host
     FASTQ parsing overlaps device counting. stream_codes allocates a fresh
     buffer per yielded chunk, so queued chunks are never mutated.
-    Exceptions re-raise at the consumer."""
+    Exceptions re-raise at the consumer. The seconds blocked on the queue
+    go to ``ingest``."""
     import queue
     import threading
 
@@ -172,7 +203,9 @@ def _prefetch(it, depth: int = 3):
     t = threading.Thread(target=worker, name="ingest-prefetch", daemon=True)
     t.start()
     while True:
+        t0 = time.perf_counter()
         item = q.get()
+        ingest.queue_wait_s += time.perf_counter() - t0
         if item is DONE:
             break
         if isinstance(item, _Raised):
@@ -223,7 +256,8 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
                 chunk_len: int = 1 << 23, progress=None, canonical: bool = True,
                 min_qual_char: str | None = None, key_filter=None, on_full=None,
                 on_full_run=None, partition=None, codes_sink=None,
-                codes_source=None, accumulator=None, mesh=None):
+                codes_source=None, accumulator=None, mesh=None,
+                ingest: IngestStats | None = None):
     """Stream all reads in ``paths`` (file paths, or readable binary streams
     such as a -g generator's pipes) through a device ladder and return the
     accumulator (finish it with _finish_to_table, or pull it to the host).
@@ -250,7 +284,10 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
     mesh: a ("data",) mesh of more than one device counts on its devices
     instead of ``device``, each chunk padded to the chunk length and dealt
     round-robin (count/mesh_runs.py); the key_filter path, host-driven,
-    ignores it, as jasper_tpu's does."""
+    ignores it, as jasper_tpu's does.
+
+    ingest: an IngestStats that gets the seconds blocked on the parser and,
+    on one device, in the codes' copies."""
     if (on_full is None and on_full_run is None) != (n_slots is None):
         raise ValueError("n_slots goes with on_full or on_full_run")
     paths = list(paths)
@@ -263,8 +300,9 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
         cap = 1 << max(14, (max(est, 4 * k) - 1).bit_length())
         chunk_len = min(chunk_len, cap)
     n_windows = chunk_len - k + 1
+    ingest = ingest if ingest is not None else IngestStats()
     chunks = (iter(codes_source) if codes_source is not None
-              else _prefetch(parse_chunks(paths, k, chunk_len, min_qual_char)))
+              else _prefetch(parse_chunks(paths, k, chunk_len, min_qual_char), ingest))
     if mesh is not None and key_filter is None and mesh.shape["data"] > 1:
         return _count_reads_mesh(chunks, k, chunk_len, mesh, canonical, progress,
                                  on_full, on_full_run, n_slots, partition, codes_sink)
@@ -283,7 +321,7 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
             if accumulator is None:
                 acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
         if key_filter is None:
-            acc.push_raw(*extract_windows(torch.from_numpy(codes).to(device), k,
+            acc.push_raw(*extract_windows(ingest.upload(codes, device), k,
                                           canonical=canonical, partition=partition))
         else:
             ukeys, mult = _unique_chunk_keys(codes, k, canonical)
@@ -525,7 +563,8 @@ def _host_finish_from_parts(parts, k: int, device, _log):
 def count_reads_to_host(paths: Iterable[str], k: int, device,
                         hash_size_hint: int | None = None,
                         chunk_len: int = 1 << 23, tlog=None,
-                        scale_finish_lanes: int | None = None, mesh=None):
+                        scale_finish_lanes: int | None = None, mesh=None,
+                        ingest: IngestStats | None = None):
     """Driver counting entry (jasper_tpu's count_reads_to_host with
     return_device_table=True): count the reads on ``device`` and land the
     distinct set on the host. Returns (host_table, keys uint32 [N, W],
@@ -544,7 +583,10 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
     mesh: a ("data",) mesh counts on its devices, ``device`` (its first,
     where the ladders fold) still sizing the budgets as jasper_tpu's one
     chip budget does; it skips the grouped partitioned passes and runs the
-    P-pass filter over the mesh instead (jasper_tpu's routing)."""
+    P-pass filter over the mesh instead (jasper_tpu's routing).
+
+    ingest: an IngestStats that every pass over the reads adds its ingest
+    seconds to (count_reads)."""
     paths = list(paths)
     device = torch.device(device)
 
@@ -585,7 +627,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
         try:
             return _count_partitioned_single_pass(
                 paths, k, device, P, G, chunk_len,
-                resident_bytes // lane_bytes(k), _log)
+                resident_bytes // lane_bytes(k), _log, ingest)
         except PartitionSliceOverflow:
             if not seekable:
                 raise
@@ -594,7 +636,8 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
         if mesh is not None:
             _log(f"count: {P} hash partitions in {P} passes over a "
                  f"{mesh.shape['data']}-device mesh")
-        return _count_partitioned(paths, k, device, P, chunk_len, budget, _log, mesh)
+        return _count_partitioned(paths, k, device, P, chunk_len, budget, _log, mesh,
+                                  ingest)
 
     evicted: list = []
     pending: list = []
@@ -611,7 +654,8 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
              f"{sum(len(s[0]) for s in evicted)} records landed)")
 
     acc = count_reads(paths, k, device, n_slots=max(2 * budget, 1024),
-                      chunk_len=chunk_len, on_full_run=_evict, mesh=mesh)
+                      chunk_len=chunk_len, on_full_run=_evict, mesh=mesh,
+                      ingest=ingest)
     resident = acc.n_resident_lanes()
     _log(f"count: device counting done ({resident} resident lanes)")
     _materialize_pending()
@@ -636,7 +680,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
 
 
 def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
-                       budget: int, _log, mesh=None):
+                       budget: int, _log, mesh=None, ingest=None):
     """P passes over the reads, pass p counting partition p alone through
     the extraction filter (no slice capacity): the fallback after a
     PartitionSliceOverflow. The parsed code chunks of pass 0 are kept in
@@ -668,7 +712,8 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
             paths, k, device, n_slots=budget, chunk_len=chunk_len,
             on_full_run=_valve, partition=(p, P),
             codes_sink=codes_cache if use_cache and p == 0 else None,
-            codes_source=codes_cache if use_cache and p > 0 else None, mesh=mesh)
+            codes_source=codes_cache if use_cache and p > 0 else None, mesh=mesh,
+            ingest=ingest)
         _materialize_prev()  # the previous pass's pulls have landed by now
         thunks = start_all_level_pulls(acc)
         thunks.extend((lambda s=s: s) for s in valve_streams)
@@ -680,7 +725,7 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
 
 
 def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
-                                   chunk_len: int, n_slots: int, _log):
+                                   chunk_len: int, n_slots: int, _log, ingest=None):
     """Grouped partitioned counting: G passes over the reads, pass g
     holding the hash subrange [g/G, (g+1)/G) as P/G partition ladders
     (PartitionedRunAccumulator), so every window of a pass is extracted and
@@ -728,7 +773,8 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
 
         count_reads(paths, k, device, n_slots=n_slots, chunk_len=chunk_len,
                     progress=_materialize_landed, on_full_run=_evict,
-                    partition=(g, G) if G > 1 else None, accumulator=pacc)
+                    partition=(g, G) if G > 1 else None, accumulator=pacc,
+                    ingest=ingest)
         pacc.drain()
         _log(f"count: pass {g + 1}/{G} counted "
              f"({pacc.n_resident_lanes()} resident lanes, {PL} ladders)")

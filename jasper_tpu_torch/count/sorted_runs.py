@@ -6,7 +6,10 @@ int64 holding a uint32 (ops/hashing.py), where
 
   * lanes with counts > 0 ("active") hold distinct keys with h = mix32(key),
   * active lanes are sorted by (h, key) and precede all dead lanes,
-  * dead lanes (counts == 0) are padding with h/keys garbage.
+  * dead lanes (counts == 0) are padding with h/keys garbage (the
+    kernels write a dead lane's count only: its h and keys are whatever
+    the output buffer held, so every reader masks them by count or
+    n_active).
 
 Active lanes equal jasper_tpu's lane for lane; dead lanes may hold other
 garbage in another order, so comparisons look at actives and ``n_active``.
@@ -28,7 +31,8 @@ raises (there is no fallback):
     two compacted runs whose active counts are known;
   * K4f ``run_totals`` (twin ``run_totals_plain``: the gathers,
     ``_run_lengths`` and ``_compact``): a stage's windows in the sort's
-    order -> each distinct key's run length, compacted or not; and
+    order -> each distinct key's run length, compacted or not (one gathered
+    key row a lane, its h recomputed on the card); and
     ``compact_run`` (twin ``_compact``), the stable partition of the
     actives of a run whose counts are given.
 
@@ -188,7 +192,13 @@ def run_totals(h, keys, valid, perm, compact: bool):
     run length): with ``compact`` the run (h, keys, counts, n_active),
     actives first; else the sorted lanes (h, keys, totals), totals at each
     key's first lane and 0 elsewhere. CPU tensors -> run_totals_plain;
-    else the K4f kernel."""
+    else the K4f kernel.
+
+    Precondition: h = mix32(keys) on every lane, valid or not, as
+    _window_order gives it to every caller. The kernel reads neither h nor
+    valid[perm]: it recomputes each sorted lane's h from its gathered key,
+    and a sorted lane p is valid iff p < valid.sum(), since the valid lanes
+    sort first."""
     fn = run_totals_plain if h.device.type == "cpu" else run_totals_cuda
     return fn(h, keys, valid, perm, compact)
 
@@ -278,14 +288,15 @@ def _run_out(L: int, W: int, device):
 
 def _launch(fn: str, lanes: int, device, *args):
     """Launch csrc/runs.cu's ``fn`` on ``device``'s current stream (no
-    synchronise) with its tile scratch; raises if the launch was refused."""
+    synchronise) with its tile scratch (status words and a ticket, which
+    the entry zeroes, and per-tile arrays); raises if the launch was
+    refused."""
     from jasper_tpu_torch.table import _build
 
     lib = _build.load()
-    tiles = -(-lanes // lib.jt_runs_tile())
     # freed on return while the kernels may still run: the caching
     # allocator reuses it only for work queued after them on this stream
-    scratch = torch.empty(3 * tiles + 1, dtype=torch.int64, device=device)
+    scratch = torch.empty(lib.jt_runs_scratch(lanes), dtype=torch.int64, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, fn)(*args, scratch.data_ptr(), device.index or 0, stream)
     if rc != 0:
@@ -342,10 +353,9 @@ def run_totals_cuda(h, keys, valid, perm, compact: bool):
     B = h.shape[0]
     out = _run_out(B, W, dev)
     if B:
-        flags = torch.empty(B, dtype=torch.uint8, device=dev)
-        pos = torch.empty(B, dtype=torch.int64, device=dev)
-        _launch("jt_run_totals", B, dev, *_ptrs(h, keys, valid, perm), B,
-                *_ptrs(flags, pos, *out), int(compact), W)
+        # h is not read: the kernel recomputes it from the gathered keys
+        _launch("jt_run_totals", B, dev, *_ptrs(keys, valid, perm), B,
+                *_ptrs(*out), int(compact), W)
         RUNS_LAUNCHES += 1
     else:
         out[3].zero_()

@@ -81,37 +81,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hash.cuh"
+
 namespace {
 
 constexpr int kRowU32 = 64;  // one bucket row: 256 bytes
 constexpr uint32_t kPadBuckets = 32;
 constexpr int kWarps = 4;  // warps per block
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-template <int W>
-__device__ __forceinline__ uint32_t mix32(const uint32_t (&kw)[W]) {
-  uint32_t h = 0x6A737072u;  // "jspr"
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    uint32_t kx = kw[j] * 0xCC9E2D51u;
-    kx = rotl32(kx, 15);
-    kx *= 0x1B873593u;
-    h ^= kx;
-    h = rotl32(h, 13);
-    h = h * 5u + 0xE6546B64u;
-  }
-  h ^= 4u * W;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
 
 __device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

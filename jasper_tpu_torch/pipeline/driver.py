@@ -45,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from jasper_tpu_torch.count.counter import count_reads_to_host
+from jasper_tpu_torch.count.counter import IngestStats, count_reads_to_host
 from jasper_tpu_torch.count.histogram import (
     histogram_rows,
     histogram_rows_from_counts,
@@ -385,8 +385,10 @@ def run_pipeline(
     CountSource) and ``scanner`` of the in-process polish stage (None when
     it was skipped or ran in worker processes; its ``regime`` is
     replicated or partitioned), ``scan_table_from_count`` (the replicated
-    scanner took the table the count built on the device) and
-    ``stages``, the (seconds, message) of every `[stage ...]` line.
+    scanner took the table the count built on the device),
+    ``stages``, the (seconds, message) of every `[stage ...]` line, and
+    ``ingest``, the count's IngestStats (None when this process counted
+    nothing).
 
     threads shapes the batch size as in the reference (sh:127-139); with
     cpu_workers=True and threads > 1 the batches are polished in that many
@@ -409,6 +411,7 @@ def run_pipeline(
     device = resolve_device(device)
     proc_id, proc_count = maybe_init_distributed()
     stages: list[tuple[float, str]] = []
+    ingest = None
     t_start = time.perf_counter()
 
     def stage(msg):
@@ -478,9 +481,11 @@ def run_pipeline(
             if mesh is not None:
                 log(f"Counting data-parallel over {mesh.shape['data']} devices")
             stage("count: start (ingest + device counting)")
+            ingest = IngestStats()
             host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
                 reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage,
-                mesh=mesh)
+                mesh=mesh, ingest=ingest)
+            stage(ingest.line())
             write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
             stage("count: histogram done")
 
@@ -648,5 +653,6 @@ def run_pipeline(
         "scan_table_from_count": (scanner is not None and from_count
                                   and scanner.regime == "replicated"),
         "stages": stages,
+        "ingest": ingest,
         "process": (proc_id, proc_count),
     }

@@ -50,9 +50,11 @@ def _sources() -> list[str]:
 
 
 def library_path() -> str:
-    """Path of the shared library for the current sources and flags."""
+    """Path of the shared library for the current sources, the headers they
+    include (``*.cuh``) and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for src in _sources() + headers:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libjt_kernels_{h.hexdigest()[:16]}.so")
@@ -101,13 +103,15 @@ def load() -> ctypes.CDLL:
 def bind_runs(lib: ctypes.CDLL) -> None:
     """Argument types of csrc/runs.cu's entries (K4m, K4f): pointers, then
     the lane counts, the outputs, the key width, the tile scratch, the
-    device and the stream."""
+    device and the stream; and of its tile and scratch-size queries."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.jt_runs_tile.restype = i32
-    lib.jt_runs_tile.argtypes = []
+    lib.jt_runs_tile.argtypes = [i32]
+    lib.jt_runs_scratch.restype = i64
+    lib.jt_runs_scratch.argtypes = [i64]
     for name, args in (
             ("jt_merge_runs", [p] * 8 + [i64, i64] + [p] * 4 + [i32]),
-            ("jt_run_totals", [p] * 4 + [i64] + [p] * 6 + [i32, i32]),
+            ("jt_run_totals", [p] * 3 + [i64] + [p] * 4 + [i32, i32]),
             ("jt_compact_run", [p] * 3 + [i64] + [p] * 4 + [i32])):
         fn = getattr(lib, name)
         fn.restype = i32

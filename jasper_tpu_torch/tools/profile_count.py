@@ -30,7 +30,11 @@ call (the default mode's first insert, the warm-up pass of --runs): the
 CUDA context's and the caching allocator's first work, under jasper_tpu's
 name. Added keys: ``device``, the first insert's ``rounds``, ``placed``
 and ``pending``, the keys left ``pending`` over every insert, and with
---runs the ``mode`` and the ladder's ``resident_lanes``.
+--runs the ``mode``, the ladder's ``resident_lanes`` and ``ingest``: a
+third pass fed from the host chunks as count_reads feeds the ladder (each
+chunk's pageable copy timed by count.counter.IngestStats), its ``pass_s``
+beside ``resident_pass_s``, the timed pass on chunks already on the
+device (no parser runs here, so ``queue_wait_s`` stays 0).
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ import argparse
 import json
 import sys
 import time
+from dataclasses import asdict
 
 import numpy as np
 import torch
 
+from jasper_tpu_torch.count.counter import IngestStats
 from jasper_tpu_torch.count.sorted_runs import (
     RunAccumulator,
     chunk_to_run,
@@ -63,7 +69,7 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def _chunks(genome: np.ndarray, chunk: int, device) -> list[torch.Tensor]:
+def _host_chunks(genome: np.ndarray, chunk: int) -> list[np.ndarray]:
     """jasper_tpu's chunking: windows [off, off + chunk) of every chunk, the
     last one padded with N codes (4)."""
     n = len(genome)
@@ -72,8 +78,13 @@ def _chunks(genome: np.ndarray, chunk: int, device) -> list[torch.Tensor]:
         end = min(off + chunk + K - 1, n)
         c = np.full(chunk + K - 1, 4, dtype=np.uint8)
         c[: end - off] = genome[off:end]
-        out.append(torch.from_numpy(c).to(device))
+        out.append(c)
     return out
+
+
+def _chunks(genome: np.ndarray, chunk: int, device) -> list[torch.Tensor]:
+    """_host_chunks on ``device``."""
+    return [torch.from_numpy(c).to(device) for c in _host_chunks(genome, chunk)]
 
 
 def insert_profile(n_bases: int, chunk: int, device: torch.device) -> dict:
@@ -173,7 +184,8 @@ def runs_profile(n_bases: int, chunk: int, mode: str, coverage: int,
         genome = np.concatenate([g[s : s + chunk] for s in starts])[:n_bases]
     else:
         genome = rng.integers(0, 4, size=n_bases).astype(np.uint8)
-    chunks = _chunks(genome, chunk, device)
+    host_chunks = _host_chunks(genome, chunk)
+    chunks = [torch.from_numpy(c).to(device) for c in host_chunks]
 
     def one(acc, c):
         if mode == "stage":
@@ -183,10 +195,10 @@ def runs_profile(n_bases: int, chunk: int, mode: str, coverage: int,
         else:
             acc.push(*chunk_to_run(c, K))
 
-    def full_pass():
+    def full_pass(ingest: IngestStats | None = None):
         acc = RunAccumulator(unit=max(1 << 14, chunk // 8), stage_lanes=8 * chunk)
-        for c in chunks:
-            one(acc, c)
+        for c in host_chunks if ingest is not None else chunks:
+            one(acc, ingest.upload(c, device) if ingest is not None else c)
         acc.flush_stage()
         # jasper_tpu waits on its first level, which is still queued when
         # every run waits for its count (an IndexError in --stage mode)
@@ -205,6 +217,15 @@ def runs_profile(n_bases: int, chunk: int, mode: str, coverage: int,
     resident = acc.n_resident_lanes()
     log(f"push steady: {per_chunk * 1000:.1f} ms/chunk "
         f"({chunk / per_chunk / 1e6:.1f} Mbases/s) resident={resident}")
+    # the same pass from host chunks, each copied as count_reads copies it
+    stats = IngestStats()
+    t0 = time.perf_counter()
+    full_pass(stats)
+    ingest = {**asdict(stats), "pass_s": time.perf_counter() - t0,
+              "resident_pass_s": dt_push}
+    log(f"ingest: the pass from host chunks {ingest['pass_s']:.3f}s, "
+        f"{ingest['codes_copy_s']:.3f}s of it in {ingest['chunks']} code copies "
+        f"(chunks already on the device: {dt_push:.3f}s)")
 
     t0 = time.perf_counter()
     run = acc.finish()
@@ -231,6 +252,7 @@ def runs_profile(n_bases: int, chunk: int, mode: str, coverage: int,
         "bases_per_sec_total": n_bases / (total - t_compile),
         "mode": mode,
         "resident_lanes": resident,
+        "ingest": ingest,
     }
 
 

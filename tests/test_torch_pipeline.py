@@ -69,11 +69,15 @@ def test_pipeline_from_reads_matches_jasper_tpu(small_case, monkeypatch, k):
     msgs = [m for _, m in res["stages"]]
     assert msgs[0] == "count: start (ingest + device counting)"
     assert "count: device scan table built" in msgs and msgs[-1] == "pipeline done"
+    # the count's ingest seconds come back with the run, and in its stage line
+    assert res["ingest"].chunks > 0 and res["ingest"].queue_wait_s >= 0
+    assert any(m.startswith("count: ingest waited") for m in msgs)
 
     # a rerun finds every stage's marker and redoes nothing
     again = run_pipeline(workdir=str(tmp_path / "port"), device="cpu", **kw)
     assert [m for _, m in again["stages"]] == ["pipeline done"]
     assert again["scanner"] is None
+    assert again["ingest"] is None
     assert _files(tmp_path / "port", k) == got
 
 

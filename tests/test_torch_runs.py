@@ -6,11 +6,16 @@ same numpy inputs. Tolerance 0 on the active lanes, n_active and the dead
 lanes' zero counts (dead lanes' h and keys are padding and may differ).
 
 Also the dispatch rule (a CPU tensor launches nothing; the CUDA wrappers
-refuse what the kernels do not take), and pure-Python models of the
-kernels' tiling: K4m's merge-path splits, per-thread sub-diagonals and the
-equal-key test across tile and thread boundaries, and K4f's run totals from
-the representatives' positions, each held to its plain twin at tile sizes
-that split equal keys across tiles."""
+refuse what the kernels do not take), K4f's precondition on every caller
+(h = mix32(keys) on every lane, the valid lanes sorted first, the sorted
+lanes equal to jasper_tpu's make_run_ones(with_flag=True)), and
+pure-Python models of the kernels' one-pass designs: K4m's merge-path
+splits, per-thread sub-diagonals, the equal-key test across tile and
+thread boundaries, the in-tile ranks and the look-back offsets; K4f's
+validity from the valid count, h recomputed from the gathered keys, the
+in-tile totals, the look-back and the cross-tile continuations. Each is
+held to its plain twin at tile sizes that split equal keys, and a long
+run, across several tiles and more than one look-back window."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -246,7 +251,73 @@ def test_cuda_wrappers_refuse_non_contiguous_or_mistyped_tensors():
         tsr._active_count(257, 256, h.device)
 
 
-# -- models of the kernels' tiling (csrc/runs.cu) -------------------------------
+def test_library_path_hashes_the_headers(monkeypatch, tmp_path):
+    """A change to a shared header (csrc/hash.cuh) names another library,
+    so the kernels are built again; nvcc is handed the .cu sources only."""
+    from jasper_tpu_torch.table import _build
+
+    (tmp_path / "a.cu").write_text('#include "hash.cuh"\n')
+    (tmp_path / "hash.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build.library_path()
+    (tmp_path / "hash.cuh").write_text("// two\n")
+    assert _build.library_path() != first
+    assert _build._sources() == [str(tmp_path / "a.cu")]
+
+
+# -- K4f's precondition on every caller -----------------------------------------
+
+
+def _flush(codes, k):
+    keys, valid = tsr.extract_windows(codes, k)
+    return tsr.flush_stage([keys], [valid])
+
+
+def _flush_split(codes, k):
+    keys, valid = tsr.extract_windows(codes, k)
+    return tsr.flush_stage_split([keys], [valid], 2, keys.shape[0])
+
+
+CALLERS = {"flush_stage": _flush, "flush_stage_split": _flush_split,
+           "chunk_to_run": tsr.chunk_to_run, "chunk_to_run_fast": tsr.chunk_to_run_fast}
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+def test_run_totals_precondition_holds_for_every_caller(monkeypatch, k, caller):
+    """What K4f reads in place of h and valid[perm]: every caller passes h =
+    mix32(keys) on every lane, valid or not, and a permutation whose valid
+    lanes come first, so that lane p is valid iff p < valid.sum(); the
+    sorted lanes equal jasper_tpu's make_run_ones(with_flag=True) lane for
+    lane, its validity flag included."""
+    rng = np.random.default_rng(6000 + k)
+    codes = _repeat_codes(rng, 1500, k)
+    seen = []
+    real = tsr.run_totals
+
+    def spy(h, keys, valid, perm, compact):
+        seen.append((h, keys, valid, perm))
+        return real(h, keys, valid, perm, compact)
+
+    monkeypatch.setattr(tsr, "run_totals", spy)
+    CALLERS[caller](torch.from_numpy(codes), k)
+    assert len(seen) == 1
+    h, keys, valid, perm = seen[0]
+    kk = run_to_numpy(h, keys, h)[1]
+    np.testing.assert_array_equal(run_to_numpy(h, keys, h)[0],
+                                  np.asarray(jmix32(np, kk), dtype=np.uint32))
+    nv = int(valid.sum())
+    np.testing.assert_array_equal(valid[perm].numpy(), np.arange(len(perm)) < nv)
+    jh, jk, _jt, jv = (np.asarray(x) for x in jsr.make_run_ones(
+        jnp.asarray(keys.numpy().astype(np.uint32)), jnp.asarray(valid.numpy()),
+        with_flag=True))
+    sh, sk, _ = run_to_numpy(h[perm], keys[perm], h[perm])
+    np.testing.assert_array_equal(sh, jh)
+    np.testing.assert_array_equal(sk, jk)
+    np.testing.assert_array_equal(valid[perm].numpy(), jv)
+
+
+# -- models of the kernels' one-pass designs (csrc/runs.cu) -----------------------
 
 
 def _keys_of(run, n: int) -> list[tuple]:
@@ -255,15 +326,45 @@ def _keys_of(run, n: int) -> list[tuple]:
     return [(int(h[i]),) + tuple(int(w) for w in keys[i][::-1]) for i in range(n)]
 
 
-def merge_path_model(a, b, n_a: int, n_b: int, tile: int, items: int):
-    """K4m as csrc/runs.cu computes it (merge_split_kernel,
-    merge_tile_kernel, scan_tiles_kernel), in Python: the merge-path split
-    of every tile diagonal (a first on equal keys), each thread's
-    sub-diagonal inside its tile, the b lane dropped when the a lane before
-    it is equal and the a lane summed with the b lane after it, survivors
-    at the scanned tile offsets, zeros after. Returns the run (h, keys,
-    counts, n_active) as numpy and the number of equal-key pairs that a
-    tile boundary and a thread boundary split."""
+def look_back_model(aggs: list, t: int, window: int, combine) -> int:
+    """csrc/runs.cu's look_back for tile t, given the aggregates of tiles
+    0..t-1: warp 0 reads ``window`` status words at a time, nearest first,
+    and stops at the nearest tile whose inclusive prefix is out, combining
+    the aggregates of the tiles after it. Which earlier tiles have only
+    their aggregate out is a fixed pattern of t and j (tile 0 always has
+    its prefix), so the walk crosses window after window."""
+    def prefix(j):
+        out = 0
+        for a in aggs[: j + 1]:
+            out = combine(out, a)
+        return out
+
+    excl, base = 0, t - 1
+    while True:
+        lanes = [base - lane for lane in range(window)]
+        pre = [j < 0 or j == 0 or (3 * j + t) % 4 == 0 for j in lanes]
+        stop = pre.index(True) if any(pre) else window - 1
+        for lane in range(stop + 1):
+            j = lanes[lane]
+            v = 0 if j < 0 else prefix(j) if pre[lane] else aggs[j]
+            excl = combine(excl, v)
+        if any(pre):
+            return excl
+        base -= window
+
+
+def merge_path_model(a, b, n_a: int, n_b: int, tile: int, items: int, window: int):
+    """K4m as csrc/runs.cu computes it in one pass (merge_split_kernel,
+    merge_kernel, look_back, fix_kernel), in Python: the merge-path split
+    of every tile diagonal (a first on equal keys); in each tile, each
+    thread's sub-diagonal, the b lane dropped when the a lane before it is
+    equal and the a lane summed with the b lane after it (saturated), the
+    survivors ranked by an exclusive scan of the threads' counts; the
+    tile's offset from the look-back over the earlier tiles' survivor
+    counts; the survivors at offset + rank; then every dead lane's count 0,
+    its h and keys left as the output buffer held them. Returns the run
+    (h, keys, counts, n_active) as numpy and the number of equal-key pairs
+    that a tile boundary and a thread boundary split."""
     A, B = _keys_of(a, n_a), _keys_of(b, n_b)
     ca, cb = a[2], b[2]
     n, L, W = n_a + n_b, len(a[0]) + len(b[0]), a[1].shape[1]
@@ -280,15 +381,20 @@ def merge_path_model(a, b, n_a: int, n_b: int, tile: int, items: int):
 
     splits = [split(max(0, d - n_b), min(d, n_a), d, 0, 0)
               for d in (min(t * tile, n) for t in range(tiles + 1))]
-    per_tile, cut = [], {"tile": 0, "thread": 0}
+    garbage = np.random.default_rng(L)
+    h = garbage.integers(0, 1 << 32, L, dtype=np.uint64).astype(np.uint32)
+    keys = garbage.integers(0, 1 << 32, (L, W), dtype=np.uint64).astype(np.uint32)
+    counts = garbage.integers(1, 1 << 32, L, dtype=np.uint64).astype(np.uint32)
+    aggs, cut = [], {"tile": 0, "thread": 0}
     for t in range(tiles):
-        out, d0 = [], t * tile
+        threads, d0 = [], t * tile
         if d0 < n:
             d1 = min(d0 + tile, n)
             i0, i1 = splits[t], splits[t + 1]
             j0, j1 = d0 - i0, d1 - i1
             na, nb = i1 - i0, j1 - j0
             for diag in range(0, na + nb, items):
+                out = []
                 ia = split(max(0, diag - nb), min(diag, na), diag, i0, j0)
                 jb = diag - ia
                 for s in range(min(items, na + nb - diag)):
@@ -306,63 +412,107 @@ def merge_path_model(a, b, n_a: int, n_b: int, tile: int, items: int):
                         if not (i0 + ia > 0 and A[i0 + ia - 1] == B[j0 + jb]):
                             out.append((b, j0 + jb, int(cb[j0 + jb])))
                         jb += 1
-        per_tile.append(out)
-    h, keys, counts = np.zeros(L, np.uint32), np.zeros((L, W), np.uint32), np.zeros(L, np.uint32)
-    q = 0
-    for out in per_tile:  # the exclusive scan of the tiles' survivors
-        for run, i, c in out:
-            h[q], keys[q], counts[q] = run[0][i], run[1][i], c
-            q += 1
-    return (h, keys, counts, q), cut
+                threads.append(out)
+        rank = np.concatenate([[0], np.cumsum([len(x) for x in threads])]).astype(int)
+        aggs.append(int(rank[-1]))
+        off = look_back_model(aggs, t, window, lambda x, y: x + y) if t else 0
+        for th, out in enumerate(threads):
+            for r, (run, i, c) in enumerate(out, start=off + rank[th]):
+                h[r], keys[r], counts[r] = run[0][i], run[1][i], c
+    n_active = sum(aggs)
+    counts[n_active:] = 0
+    return (h, keys, counts, n_active), cut
 
 
-@pytest.mark.parametrize("k", [15, 37])
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("tile,items", [(4, 1), (7, 2), (16, 4), (33, 4)])
 def test_merge_path_model_matches_plain(k, tile, items):
     rng = np.random.default_rng(10 * k + tile)
     a, b = _pair(rng, k, 150, 120, 0.75, 192, 150)
     want = tsr.merge_runs_plain(*run_from_numpy(*a, "cpu"), *run_from_numpy(*b, "cpu"))
-    got, cut = merge_path_model(a, b, 150, 120, tile, items)
+    got, cut = merge_path_model(a, b, 150, 120, tile, items, window=4)
     assert got[3] == int(want[3]) == 270 - 90
     _assert_runs_equal(_actives(*want[:3], got[3]), _actives(*got[:3], got[3]))
     assert not got[2][got[3]:].any()
     assert cut["tile"] > 0  # equal keys on both sides of a tile boundary
     if items > 1:
         assert cut["thread"] > 0
+    assert -(-(len(a[0]) + len(b[0])) // tile) > 2 * 4  # more tiles than two windows
 
 
-def run_totals_model(sh, skeys, svalid, tile: int) -> np.ndarray:
-    """K4f's totals as csrc/runs.cu computes them (ones_flag_kernel,
-    scan_tiles_kernel, ones_pos_kernel, ones_totals_kernel): a lane is a
-    representative when valid and unequal to the lane before; per tile the
-    count, scanned into offsets; the positions stored compacted; a total
-    is the next representative's position (or the valid lanes' end) minus
-    its own."""
-    B = len(sh)
-    rep = [bool(svalid[p]) and not (p > 0 and svalid[p - 1] and sh[p] == sh[p - 1]
-                                    and (skeys[p] == skeys[p - 1]).all())
-           for p in range(B)]
-    n_valid = max((p + 1 for p in range(B) if svalid[p]), default=0)
-    counts = [sum(rep[t : t + tile]) for t in range(0, B, tile)]
-    off = np.concatenate([[0], np.cumsum(counts)])
-    pos = np.zeros(int(off[-1]), np.int64)
-    for ti, t in enumerate(range(0, B, tile)):
-        r = [p for p in range(t, min(t + tile, B)) if rep[p]]
-        pos[off[ti] : off[ti] + len(r)] = r
-    totals = np.zeros(B, np.int64)
-    nxt = np.append(pos[1:], n_valid)
-    totals[pos] = nxt - pos
-    return totals
+def run_totals_model(keys, valid, perm, compact: bool, tile: int, window: int):
+    """K4f (multiplicity 1) as csrc/runs.cu computes it in one pass
+    (count_valid_kernel, totals_kernel, look_back, fix_kernel), in Python
+    on numpy: n_valid counted over ``valid`` (sorted lane p is valid iff p
+    < n_valid); per tile of sorted lanes, the key rows gathered through
+    ``perm`` (the valid lanes only when compacting) and h recomputed with
+    mix32, the lane before the tile when it is valid; a representative is
+    a valid lane unequal to the lane before; its total is the next
+    representative's position in the tile, or the tile's valid end, minus
+    its own; the look-back gives the tile's output offset (compact: the
+    representatives before it) or the last representative's position + 1
+    before it (a maximum); each tile's leading valid lanes then go to the
+    last representative before it. Returns (h, keys, totals) over the
+    sorted lanes, or with ``compact`` the run (h, keys, counts, n_active),
+    dead lanes' counts 0 and their h and keys left as the buffer held
+    them."""
+    B, W = keys.shape
+    nv = int(np.count_nonzero(valid))
+    tiles = -(-B // tile)
+    garbage = np.random.default_rng(B)
+    oh = garbage.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32)
+    ok = garbage.integers(0, 1 << 32, (B, W), dtype=np.uint64).astype(np.uint32)
+    oc = garbage.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.int64)
+    combine = (lambda x, y: x + y) if compact else max
+    aggs, fixes = [], []
+    for t in range(tiles):
+        p0 = t * tile
+        end = min(tile, B - p0)
+        vend = min(max(nv - p0, 0), end)
+        gend = vend if compact else end
+        first = p0 - 1 if p0 > 0 and vend > 0 else p0
+        rows = keys[perm[first : p0 + gend]]
+        hs = np.asarray(jmix32(np, rows), dtype=np.uint32)
+        sh = np.concatenate([hs[:, None], rows[:, ::-1]], 1)  # run order's sort key
+        lo = p0 - first  # 1 when the lane before the tile is staged
+        rep = [x < vend and (p0 + x == 0 or (sh[lo + x] != sh[lo + x - 1]).any())
+               for x in range(end)]
+        pos = [x for x in range(end) if rep[x]]
+        cnt = len(pos)
+        aggs.append(cnt if compact else (p0 + pos[-1] + 1 if cnt else 0))
+        excl = look_back_model(aggs, t, window, combine) if t else 0
+        if excl > 0:
+            fixes.append((excl - 1, pos[0] if cnt else vend))
+        tot = {x: (pos[r + 1] if r + 1 < cnt else vend) - x for r, x in enumerate(pos)}
+        if compact:
+            for r, x in enumerate(pos):
+                oh[excl + r], ok[excl + r], oc[excl + r] = hs[lo + x], rows[lo + x], tot[x]
+        else:
+            oh[p0 : p0 + end], ok[p0 : p0 + end] = hs[lo:], rows[lo:]
+            oc[p0 : p0 + end] = [tot.get(x, 0) for x in range(end)]
+    for target, lead in fixes:
+        oc[target] += lead
+    if not compact:
+        return oh, ok, oc
+    n_active = sum(aggs)
+    oc[n_active:] = 0
+    return oh, ok, oc, n_active
 
 
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("tile", [3, 8, 64])
-def test_run_totals_model_matches_plain(tile):
-    rng = np.random.default_rng(tile)
-    codes = _repeat_codes(rng, 600, 25)
-    keys, valid = tsr.extract_windows(torch.from_numpy(codes), 25)
+@pytest.mark.parametrize("compact", [True, False])
+def test_run_totals_model_matches_plain(k, tile, compact):
+    rng = np.random.default_rng(100 * k + tile)
+    codes = _repeat_codes(rng, 600, k)
+    keys, valid = tsr.extract_windows(torch.from_numpy(codes), k)
     h, perm = tsr._window_order(keys, valid)
-    sh, skeys, svalid = h[perm], keys[perm], valid[perm]
-    want = tsr._run_lengths(sh, skeys, svalid).numpy()
-    got = run_totals_model(sh.numpy(), skeys.numpy(), svalid.numpy(), tile)
-    np.testing.assert_array_equal(got, want)
-    assert want.max() > 3 * tile  # a run longer than several tiles
+    want = tsr.run_totals_plain(h, keys, valid, perm, compact)
+    kk = run_to_numpy(h, keys, h)[1]
+    got = run_totals_model(kk, valid.numpy(), perm.numpy(), compact, tile, window=4)
+    if compact:
+        _check_run(want, (*run_from_numpy(*got[:3], "cpu"), got[3]))
+    else:
+        _assert_runs_equal(run_to_numpy(*want), got)
+    totals = run_to_numpy(*tsr.run_totals_plain(h, keys, valid, perm, False))[2]
+    assert totals.max() > 4 * tile  # a run across more tiles than one window
