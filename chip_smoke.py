@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 2] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18]
+                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
                           [--seed 7]
                           [--workdir DIR] [--ab-probe OTHER_probe.cu]
 
@@ -173,7 +173,28 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      plain twin's ms, and for K4f unique_consecutive's ms and that of a
      gather-only yardstick of its reads (GATHER_FLOOR_CU); its line also
      quotes the earlier three-pass design's ms from PERF.md, labelled as
-     not measured in this run.
+     not measured in this run;
+ 19. the counting surface's other forms, after phase 14 and before phase
+     9's child starts, on race20's reads: count_reads_to_host with
+     canonical=False on the whole reads, in the 3-tuple form on the
+     classic branch (no device table built; its finish budget given,
+     FORWARD_FINISH_LANES, since the forward ladder passes the card's
+     default one), its records folded to
+     canonical ones in numpy (x and rc(x)) equal to phase 6's table byte
+     for byte (55,718,396 records at 20000 kb), and the same forward count
+     forced to 4 partitions in 2 passes equal to it record for record;
+     the canonical 3-tuple form equal to phase 6's table, its peak device
+     memory against phase 6's 4-tuple count; min_qual_char on the 20 Mbp
+     head with qualities rewritten from a seeded rng (~1% of bases below
+     the cut) equal to the numpy oracle with those bases masked, on the
+     classic branch and through the P-pass filter over a 2-device data
+     mesh of the card; build_table(owner_bits=2) on the card of race20's
+     records of owner 0, every key looked up to its count by K1's
+     owner-bits mode, equal to its plain twin. Gates: K4m and K4f launched
+     where the count merges (counts reset just before each count), K4f
+     on every count, K1's owner-bits count moved. Reports each count's
+     seconds, records, peak memory and K4 launches, the fold's seconds, and
+     K1's owner-bits ms, bound and share on 4 M of the one-owner keys.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -506,16 +527,17 @@ def kmers_u64(codes: np.ndarray, k: int) -> np.ndarray:
     return np.minimum(fwd, rc)
 
 
+# a byte's four bases complemented and in reverse order
+_RC_BYTE = np.array([sum((3 - (b >> (2 * i) & 3)) << (6 - 2 * i) for i in range(4))
+                     for b in range(256)], np.uint8)
+
+
 def revcomp_u64(v: np.ndarray, k: int) -> np.ndarray:
-    """Reverse complement of packed k-mers (k <= 32), vectorized."""
-    x = ~v  # complement every base (the bits above 2k are shifted out below)
-    # reverse the 32 two-bit groups of the 64-bit word
-    for mask, sh in ((0x3333333333333333, 2), (0x0F0F0F0F0F0F0F0F, 4),
-                     (0x00FF00FF00FF00FF, 8), (0x0000FFFF0000FFFF, 16),
-                     (0x00000000FFFFFFFF, 32)):
-        m = np.uint64(mask)
-        x = ((x >> np.uint64(sh)) & m) | ((x & m) << np.uint64(sh))
-    return x >> np.uint64(64 - 2 * k)
+    """Reverse complement of packed k-mers (k <= 32), vectorized: each byte
+    through _RC_BYTE, the bytes in reverse order (the bits above 2k are
+    shifted out)."""
+    x = _RC_BYTE[np.ascontiguousarray(v, dtype=np.uint64).view(np.uint8)]
+    return x.view(np.uint64).byteswap() >> np.uint64(64 - 2 * k)
 
 
 def make_race(rng, n_bp: int, k: int, n_records: int):
@@ -822,17 +844,23 @@ def oracle_counts(fastq: str, k: int):
     return np.unique(np.minimum(fwd, rc)[valid], return_counts=True)
 
 
-def oracle_windows(fastq: str, k: int):
+def oracle_windows(fastq: str, k: int, min_qual_char: str | None = None):
     """Every window of every read of ``fastq`` as packed forward and
-    reverse-complement k-mers [reads, windows] uint64 and its validity."""
+    reverse-complement k-mers [reads, windows] uint64 and its validity; a
+    base whose quality character is below ``min_qual_char`` is invalid, as
+    the parser masks it (native/jt_fastx.cc)."""
     with open(fastq, "rb") as f:
-        seqs = f.read().split(b"\n")[1::4]
+        lines = f.read().split(b"\n")
+    seqs = lines[1::4]
     L = len(seqs[0])
     if any(len(q) != L for q in seqs):
         raise ValueError("oracle_counts needs reads of one length")
     lut = np.full(256, 4, np.uint8)
     lut[np.frombuffer(b"ACGT", np.uint8)] = [0, 1, 2, 3]
     codes = lut[np.frombuffer(b"".join(seqs), np.uint8)].reshape(len(seqs), L)
+    if min_qual_char is not None:
+        qual = np.frombuffer(b"".join(lines[3::4][:len(seqs)]), np.uint8)
+        codes[qual.reshape(len(seqs), L) < ord(min_qual_char)] = 4
     n = L - k + 1
     c = codes.astype(np.uint64)
     fwd = np.zeros((len(seqs), n), np.uint64)
@@ -881,7 +909,7 @@ def phase_count(reads: str, device, card: str, k: int = 25,
     t0 = time.perf_counter()
     host, rkeys, rcounts, dev_tab = count_reads_to_host(
         [head], k, device, hash_size_hint=max(os.path.getsize(head) // 10, 1024),
-        tlog=log)
+        tlog=log, return_device_table=True)
     torch.cuda.synchronize(device)
     count_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
@@ -1120,7 +1148,7 @@ def event_wraps(events: EventLog) -> list:
             "ladder_merge", f,
             lambda self, a, b: 2 * max(a[0].shape[0], b[0].shape[0]))),
         (build, "build_from_run", lambda f: events.wrap(
-            "build_from_run", f, lambda h, keys, counts, n_buckets: h.shape[0])),
+            "build_from_run", f, lambda h, keys, counts, *a, **kw: h.shape[0])),
     ]
 
 
@@ -1356,7 +1384,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
         try:
             with patched(peaks.wraps() + pulls.wraps()):
                 host, rkeys, rcounts, dev_tab = counter.count_reads_to_host(
-                    [reads], k, device, tlog=tlog, **kw)
+                    [reads], k, device, tlog=tlog, return_device_table=True, **kw)
             torch.cuda.synchronize(device)
         finally:
             for var in env:
@@ -2105,7 +2133,8 @@ def phase_runs(device, card: str, seed: int) -> dict:
 def k4_rows(runs: dict, drivers: list) -> list[dict]:
     """The kernels line's K4m and K4f rows: the main path's largest shapes
     (a merge of 2^26 lanes a side at W = 2, overlap 50%; race20's stage
-    flush of 2^26 lanes), their launches summed over the driver paths."""
+    flush of 2^26 lanes), their launches summed over the driver paths (and
+    phase 19's counts: every report with a "k4" count)."""
     m = next(r for r in runs["merges"]
              if (r["W"], r["lanes_a"], r["overlap"]) == (2, K4_MAIN, 0.5))
     t = next(r for r in runs["totals"]
@@ -2526,7 +2555,7 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     t0 = time.perf_counter()
     host, rkeys, _rcounts, dev_tab = count_reads_to_host(
         [reads], k, device, hash_size_hint=max(os.path.getsize(reads) // 10, 1024),
-        tlog=logs.append, mesh=mesh)
+        tlog=logs.append, mesh=mesh, return_device_table=True)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     k4 = k4_launches("mesh count")
@@ -2553,6 +2582,256 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     torch.cuda.empty_cache()
     log("mesh count " + json.dumps(out))
     return out
+
+
+# -- phase 19: the counting surface's other forms ------------------------------
+
+Q_CUT = "+"  # phase 19's min_qual_char: '#' bases fall below it, 'I' bases do not
+# phase 19's finish budget for race20's forward count: its ladder holds
+# 234,880,352 lanes after counting, past the card's default budget (~216 M
+# lanes with phase 6's table resident), which would take the host-merge
+# finish; at the measured worst lane multiple (4.1) 2^28 lanes of 32 B
+# peak near 35 GB
+FORWARD_FINISH_LANES = 1 << 28
+Q_LOW_SHARE = 0.01  # phase 19's share of bases rewritten below the cut
+
+
+def requalified(head: str, seed: int, low: float = Q_LOW_SHARE) -> str:
+    """``head`` with every quality line rewritten from a seeded rng: 'I',
+    but '#' (below Q_CUT) for about ``low`` of the bases; written beside it
+    once."""
+    out = head[:-3] + f".q{seed}.fq"
+    if not os.path.exists(out):
+        with open(head, "rb") as f:
+            lines = f.read().split(b"\n")
+        n = len(lines) // 4
+        L = len(lines[1])
+        rng = np.random.default_rng(seed)
+        qual = np.where(rng.random((n, L)) < low, ord("#"), ord("I")).astype(np.uint8)
+        for i in range(n):
+            lines[4 * i + 3] = qual[i].tobytes()
+        with open(out + ".part", "wb") as f:
+            f.write(b"\n".join(lines))
+        os.replace(out + ".part", out)
+    return out
+
+
+def _packed_records(rkeys: np.ndarray) -> np.ndarray:
+    """Two-word (k <= 32) key rows -> the packed k-mers, uint64."""
+    return rkeys[:, 0].astype(np.uint64) | (rkeys[:, 1].astype(np.uint64) << np.uint64(32))
+
+
+def fold_forward(rkeys: np.ndarray, rcounts: np.ndarray, k: int):
+    """Forward records (k odd, k <= 32) -> canonical ones in (mix32, key)
+    order: x and rc(x) fold into min(x, rc(x)) with their counts summed.
+    The rc is taken in numpy; each side of the fold is a set of distinct
+    canonical keys, sorted (the two sides on two threads) and then merged
+    with the native library (the host merge's k-way heap sums the counts
+    of a key in both)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jasper_tpu_torch.io import native_jf
+    from jasper_tpu_torch.ops.kmer import key_bytes
+
+    v = _packed_records(rkeys)
+    r = revcomp_u64(v, k)
+    if (v == r).any():
+        raise AssertionError(f"a {k}-mer is its own reverse complement")
+    lo = v < r
+
+    def side(keys64, counts):
+        words = np.stack([keys64 & np.uint64(M32), keys64 >> np.uint64(32)], axis=1)
+        sk, sc, sh = native_jf.sort_run_records(words.astype(np.uint32),
+                                                counts.astype(np.uint64), key_bytes(k))
+        return sh, sk, sc
+
+    with ThreadPoolExecutor(2) as pool:
+        streams = list(pool.map(side, (v[lo], r[~lo]), (rcounts[lo], rcounts[~lo])))
+    return native_jf.merge_runs_multi(streams)
+
+
+def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device,
+                  card: str, k: int = 25) -> dict:
+    """Phase 19: count_reads_to_host in the forms jasper_tpu's callers use
+    besides the driver's, on race20's reads (phase 6's ``scan_tab``):
+
+      * forward (canonical=False) on the whole reads, the 3-tuple form on
+        the classic branch (its finish budget FORWARD_FINISH_LANES); the
+        records folded to canonical ones in numpy
+        (x and rc(x): race_reference reverse-complements every other read)
+        give phase 6's table byte for byte; the same count forced to 4
+        partitions in 2 passes gives the same records in the same order;
+      * the canonical 3-tuple form: phase 6's table, and its peak device
+        memory, the whole count's and its finish's, against phase 6's
+        4-tuple count (``count6_steps``, its PeakLog rows: bytes above its
+        base per step, the finish holding the table's build), and the
+        device bytes its result holds (the 4-tuple's holds its table);
+      * min_qual_char on the 20 Mbp head with requalified qualities: the
+        numpy oracle's records, on the classic branch and through the
+        P-pass filter over a 2-device data mesh of the card;
+      * build_table(owner_bits=2) of race20's records of owner 0 (the top
+        2 bits of h are 0) on the card: K1's owner-bits lookup of every key
+        gives its count and equals its plain twin.
+
+    Every count is driven with the K4 counts set to 0 just before it and
+    read just after (K4m and K4f gated where the count merges), the lookup
+    with K1's owner-bits count likewise. Reports each call's seconds and
+    peak device memory above its base."""
+    import torch
+
+    from jasper_tpu_torch.count.counter import count_reads_to_host
+    from jasper_tpu_torch.io import native_jf
+    from jasper_tpu_torch.parallel.scanner import local_data_mesh
+    from jasper_tpu_torch.table import probe
+    from jasper_tpu_torch.table.build import build_table
+    from jasper_tpu_torch.table.host_table import HostKmerTable
+    from jasper_tpu_torch.table.kmer_table import run_from_numpy, table_to_numpy
+    from jasper_tpu_torch.table.probe import to_i32_bits
+
+    phase_t0 = time.perf_counter()
+    want_tab = table_to_numpy(scan_tab)
+    hint = max(os.path.getsize(reads) // 10, 1024)
+    calls, launches = {}, {"merge_launches": 0, "runs_launches": 0, "compact_launches": 0}
+
+    def count(name, paths, env=None, line=None, gate=True, peaks=None, **kw):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        logs: list = []
+        os.environ.update(env or {})
+        reset_k4()
+        t0 = time.perf_counter()
+        try:
+            with patched(peaks.wraps() if peaks is not None else []):
+                res = count_reads_to_host(paths, k, device, tlog=logs.append, **kw)
+            torch.cuda.synchronize(device)
+            held = torch.cuda.memory_allocated(device) - base  # the result alive
+        finally:
+            for var in env or {}:
+                del os.environ[var]
+        wall = time.perf_counter() - t0
+        k4 = k4_launches(f"phase 19 {name}", gate=gate)
+        for key in launches:
+            launches[key] += k4[key]
+        if line is not None and not any(m.startswith(line) for m in logs):
+            raise AssertionError(f"phase 19 {name}: no '{line}' line: {logs}")
+        if len(res) != 3 + bool(kw.get("return_device_table")):
+            raise AssertionError(f"phase 19 {name}: a {len(res)}-tuple")
+        calls[name] = {"records": int(len(res[1])), "seconds": wall, "k4": k4,
+                       "peak_device_bytes_above_base": max(
+                           torch.cuda.max_memory_allocated(device),
+                           peaks.peak if peaks is not None else 0) - base,
+                       "device_bytes_held_by_the_result": held,
+                       "stages": [m for m in logs if m.startswith("count: ")]}
+        log(f"phase 19 {name}: " + json.dumps(calls[name]))
+        return res
+
+    # forward, classic (its budget given); folded to canonical
+    _host, fkeys, fcounts = count("forward", [reads], line="count: run pull done",
+                                  canonical=False, hash_size_hint=hint,
+                                  scale_finish_lanes=FORWARD_FINISH_LANES)
+    del _host
+    t0 = time.perf_counter()
+    fh, folded_keys, folded_counts = fold_forward(fkeys, fcounts, k)
+    folded = HostKmerTable.from_sorted_run(k, folded_keys, folded_counts, h=fh)
+    fold_s = time.perf_counter() - t0
+    if records_gate is not None and len(folded_keys) != records_gate:
+        raise AssertionError(f"folded forward records {len(folded_keys)} != {records_gate}")
+    if not np.array_equal(folded.tab, want_tab):
+        raise AssertionError("folded forward records != phase 6's table")
+    del folded, fh
+    # forward, forced to 4 partitions in 2 passes: the same records in order
+    _host, gkeys, gcounts = count(
+        "forward, 4 partitions in 2 passes", [reads],
+        env={"JT_COUNT_PARTITIONS": "4", "JT_COUNT_GROUPS": "2"},
+        line="count: pass 2/2 counted", canonical=False, hash_size_hint=hint)
+    del _host
+    if not (np.array_equal(gkeys, fkeys) and np.array_equal(gcounts, fcounts)):
+        raise AssertionError("forced forward count != the classic forward count")
+    del gkeys, gcounts
+
+    # canonical, the 3-tuple form: phase 6's table, its peak without the
+    # device table
+    peaks = PeakLog(device, k)
+    host3, ckeys, ccounts = count("canonical 3-tuple", [reads], line="count: run pull done",
+                                  peaks=peaks, hash_size_hint=hint)
+    if not np.array_equal(host3.tab, want_tab):
+        raise AssertionError("canonical 3-tuple host table != phase 6's table")
+    if not (np.array_equal(folded_keys, ckeys) and np.array_equal(folded_counts, ccounts)):
+        raise AssertionError("folded forward records != the canonical records")
+    del host3, folded_keys, folded_counts, fkeys, fcounts
+    # bytes above each count's base: the whole count's peak and its
+    # finish's (phase 6: the merge and the table's build; here the merge)
+    finish3 = max(b for n, _r, b in peaks.rows if n == "ladder finish")
+    finish4 = max(b for n, _r, b, _x in count6_steps if n == "finish")
+    memory = {"three_tuple_peak": max(b for _n, _r, b in peaks.rows),
+              "three_tuple_finish_peak": finish3,
+              "phase6_four_tuple_peak": max(b for _n, _r, b, _x in count6_steps),
+              "phase6_four_tuple_finish_peak": finish4,
+              "device_table_bytes": int(want_tab.nbytes),
+              "table_gone_from_finish": finish3 + want_tab.nbytes <= finish4}
+    memory["table_gone_from_peak"] = (memory["three_tuple_peak"] + want_tab.nbytes
+                                      <= memory["phase6_four_tuple_peak"])
+
+    # min_qual_char on the requalified head: the oracle, classic and P-pass
+    # over a 2-device mesh of the card
+    qhead = requalified(reads_head(reads), seed=19)
+    fwd, rc, valid = oracle_windows(qhead, k, min_qual_char=Q_CUT)
+    uniq, cnt = np.unique(np.minimum(fwd, rc)[valid], return_counts=True)
+    masked = int((~valid).sum())
+    del fwd, rc, valid
+    qhint = max(os.path.getsize(qhead) // 10, 1024)
+    for name, env, kw, line in (
+            ("quality", {}, {}, "count: run pull done"),
+            ("quality, P-pass over a 2-device mesh", {"JT_COUNT_PARTITIONS": "2"},
+             {"mesh": local_data_mesh(devices=[device] * 2)},
+             "count: partition pass 2/2 counted")):
+        _host, qkeys, qcounts = count(name, [qhead], env=env, line=line, gate=False,
+                                      min_qual_char=Q_CUT, hash_size_hint=qhint, **kw)
+        got = _packed_records(qkeys)
+        order = np.argsort(got)
+        if not (np.array_equal(got[order], uniq) and np.array_equal(qcounts[order], cnt)):
+            raise AssertionError(f"{name}: {len(got)} records != the oracle's {len(uniq)}")
+        if calls[name]["k4"]["runs_launches"] <= 0:
+            raise AssertionError(f"{name}: K4f did not run")
+        del _host, qkeys, qcounts
+
+    # owner-bits build of owner 0's records: K1 owner-bits lookups
+    rh = native_jf.mix32_batch(ckeys)
+    one = (rh >> np.uint32(30)) == 0
+    run = run_from_numpy(rh[one], ckeys[one], ccounts[one], device)
+    n_owner = int(one.sum())
+    del rh, ckeys, ccounts
+    t0 = time.perf_counter()
+    tab = build_table((*run, n_owner), k, owner_bits=2)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
+    keys = to_i32_bits(run[1])
+    valid = torch.ones(n_owner, dtype=torch.bool, device=device)
+    probe.OWNER_LAUNCHES = 0
+    got = probe.lookup_kmers(tab, keys, valid, owner_bits=2)
+    torch.cuda.synchronize(device)
+    owner_launches = probe.OWNER_LAUNCHES
+    if owner_launches <= 0:
+        raise AssertionError("the owner-bits lookup did not launch K1")
+    if not torch.equal(got.to(torch.int64) & M32, run[2]):
+        raise AssertionError("owner-bits lookup of owner 0's keys != their counts")
+    if not torch.equal(got, probe.lookup_kmers_plain(tab, keys, valid, owner_bits=2)):
+        raise AssertionError("owner-bits lookup != its plain twin on the whole table")
+    probe_row = compare_probe(tab, keys[:LANES], valid[:LANES], owner_bits=2)
+    out = {"calls": calls, "fold_s": fold_s, "memory": memory,
+           "quality": {"min_qual_char": Q_CUT, "low_share": Q_LOW_SHARE,
+                       "masked_windows": masked, "oracle_records": int(len(uniq))},
+           "owner_bits": {"records": n_owner, "table_bytes": int(tab.numel() * 4),
+                          "build_s": build_s, "lookup_launches": owner_launches,
+                          "probe": {key: probe_row[key] for key in (
+                              "lanes", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "share_of_bound", "max_abs_err")}},
+           "k4": launches, "seconds": time.perf_counter() - phase_t0, "card": card}
+    log("phase 19 " + json.dumps(out))
+    del run, tab, keys, valid, got
+    torch.cuda.empty_cache()
+    return {**out, "_owner_row": probe_row, "_owner_launches": owner_launches}
 
 
 TWO_PROCESS = """
@@ -2794,9 +3073,9 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="phases to run after 1-2, comma-separated (7, 9, 10, 11, "
-                         "13 and 14 need 6, 12 needs 8)")
+                         "13, 14 and 19 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--ab-probe", default=None, metavar="FILE",
                     help="another version of csrc/probe.cu: its unranged kernel is "
@@ -2807,8 +3086,8 @@ def main(argv=None) -> int:
                          ".smoke_work/ in the checkout; removed at the end)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
-    if phases & {7, 9, 10, 11, 13, 14} and 6 not in phases:
-        ap.error("phases 7, 9, 10, 11, 13 and 14 hold their results against phase 6's")
+    if phases & {7, 9, 10, 11, 13, 14, 19} and 6 not in phases:
+        ap.error("phases 7, 9, 10, 11, 13, 14 and 19 hold their results against phase 6's")
     if 12 in phases and 8 not in phases:
         ap.error("phase 12 scans phase 8's table")
     if not phases & {6, 8, 18}:
@@ -2898,15 +3177,19 @@ def main(argv=None) -> int:
             "library_ms": None,  # no single PyTorch call computes a ranged probe
             "design": RANGED_DESIGN,
         })
-    sharded = more.get("sharded")
-    if sharded is not None:
-        rows = sharded["_rows"]
+    sharded, surface = more.get("sharded"), more.get("surface")
+    if sharded is not None or surface is not None:
+        # phase 13's shards where it ran, else phase 19's one-owner table;
+        # the launches of both paths
+        rows = sharded["_rows"] if sharded is not None else [surface["_owner_row"]]
         kernels["kernels"].append({
             "name": "bucket_probe_owner_bits",
             "route": "cuda",
             "source": "jasper_tpu_torch/csrc/probe.cu",
             "replaces": "jasper_tpu/table/pallas_probe.py:142",
-            "launches": sharded["owner_bits_launches"],
+            "launches": sum(x[key] for x, key in ((sharded, "owner_bits_launches"),
+                                                  (surface, "_owner_launches"))
+                            if x is not None),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             # per 4 M-lane tile on one shard, the mean over the shards
             "ms": sum(r["ms"] for r in rows) / len(rows),
@@ -2917,7 +3200,8 @@ def main(argv=None) -> int:
             "design": OWNER_DESIGN,
         })
     if "runs" in more:
-        kernels["kernels"] += k4_rows(more["runs"], drivers)
+        kernels["kernels"] += k4_rows(more["runs"], drivers + (
+            [surface] if surface is not None else []))
     log(f"K4 launches per driver path {[d['k4'] for d in drivers]}")
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
@@ -3006,6 +3290,10 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
             if 14 in phases:
                 phase_mesh_count(reads, scanner.tab, RACE_RECORDS if full else None,
                                  _count_seconds(drv), device, card)
+            if 19 in phases:
+                more["surface"] = phase_surface(
+                    reads, scanner.tab, RACE_RECORDS if full else None,
+                    drv["count_peak_memory"]["per_step"], device, card)
             jelly = None
             if 9 in phases:
                 jelly = start_jellyfish(reads, jf, card, RACE_RECORDS if full else None)

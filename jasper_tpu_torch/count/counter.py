@@ -3,16 +3,17 @@ jasper_tpu/count/counter.py, which imports jax at load): `jellyfish count -C`
 as sort + segment-sum.
 
 Code chunks stream from the reads (io/fastx.py's stream_codes, parsed
-on a background thread), every window is extracted and canonicalized on the
-device, and the windows collapse into sorted runs that accumulate in LSM
-ladders (count/sorted_runs.py). The distinct records then land on the host
-for the host table, the histogram and the `.jf`, and the lookup table is
-built on the device (table/build.py) for the polish scan.
+on a background thread), every window is extracted and canonicalized (or
+kept forward, canonical=False) on the device, and the windows collapse into
+sorted runs that accumulate in LSM ladders (count/sorted_runs.py). The
+distinct records then land on the host for the host table, the histogram
+and the `.jf`; with return_device_table=True the lookup table is also built
+on the device (table/build.py) for the polish scan.
 
 count_reads_to_host picks the finish by size, as jasper_tpu does:
 
-  * classic: one ladder, one device merge of every level, the table built
-    from the merged run on the device and the records pulled;
+  * classic: one ladder, one device merge of every level, the records
+    pulled (and the table built from the merged run on the device);
   * host merge: a ladder past the finish budget is pulled level by level
     and merged on the host (native k-way merge); one that passes twice the
     budget while counting is evicted to the host then, and counting goes on
@@ -24,9 +25,9 @@ count_reads_to_host picks the finish by size, as jasper_tpu does:
     hash order on the host. A partition slice overflow redoes the count in
     P passes of the extraction filter.
 
-The host-merged branches push the merged run back and build the device
-table from it when it fits the card; otherwise the scanner uploads the host
-table. Device->host pulls are asynchronous (pinned buffers, a side stream
+Asked for the device table, the host-merged branches push the merged run
+back and build it when it fits the card; otherwise the scanner uploads the
+host table. Device->host pulls are asynchronous (pinned buffers, a side stream
 and an event). The host merge needs the native library and raises without
 it: there is no slower numpy path.
 
@@ -71,7 +72,7 @@ from jasper_tpu_torch.ops.hashing import M32
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows, words_per_kmer
 from jasper_tpu_torch.table.build import build_table
 from jasper_tpu_torch.table.host_table import HostKmerTable, _require_native
-from jasper_tpu_torch.table.kmer_table import run_to_numpy
+from jasper_tpu_torch.table.kmer_table import empty_table, run_to_numpy
 from jasper_tpu_torch.table.layout import (
     PAD_BUCKETS,
     ROW_U32,
@@ -109,6 +110,8 @@ RESIDENT_SHARE = 5.5 / 16
 DEV_BUILD_SHARE = 0.5
 
 CODES_CACHE_BYTES = 16 << 30  # jasper_tpu's JT_CODES_CACHE_BYTES default
+
+GROW_LOAD_LIMIT = 0.8  # jasper_tpu's sizing of the --disk dump threshold
 
 
 def lane_bytes(k: int) -> int:
@@ -253,14 +256,20 @@ def _unique_chunk_keys(codes: np.ndarray, k: int, canonical: bool):
 
 
 def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
-                chunk_len: int = 1 << 23, progress=None, canonical: bool = True,
+                chunk_len: int = 1 << 23, hash_size_hint: int | None = None,
+                progress=None, canonical: bool = True,
                 min_qual_char: str | None = None, key_filter=None, on_full=None,
+                mesh=None, return_run: bool = False, return_acc: bool = False,
                 on_full_run=None, partition=None, codes_sink=None,
-                codes_source=None, accumulator=None, mesh=None,
+                codes_source=None, accumulator=None,
                 ingest: IngestStats | None = None):
     """Stream all reads in ``paths`` (file paths, or readable binary streams
     such as a -g generator's pipes) through a device ladder and return the
-    accumulator (finish it with _finish_to_table, or pull it to the host).
+    lookup table built on ``device`` (int32 bits), as jasper_tpu's
+    count_reads does: an empty input gives empty_table(k, 64).
+    return_run=True returns (table, run), the run (h, keys, counts,
+    n_active) being the merged ladder (None for an empty input);
+    return_acc=True returns the accumulator unfinished.
 
     canonical=False counts forward keys; min_qual_char drops FASTQ/SAM
     bases of a lower quality character (-Q).
@@ -272,14 +281,16 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
 
     on_full(tab) runs before a chunk whenever the ladder's resident lanes
     pass ``n_slots``: it gets the ladder's table, built on the device (int32
-    bits), and counting goes on in a fresh ladder (`--disk`). on_full_run(acc)
-    runs after that check whenever the settled lanes pass ``n_slots``: the
-    caller evicts the levels to the host, and counting goes on in a fresh
-    ladder (or in the injected ``accumulator``, which the callback empties
-    itself). partition=(p, P) counts only the p-th of P hash partitions.
-    codes_sink collects the parsed (codes, fill) chunks and codes_source
-    replays them in place of parsing. progress(n_chunks, resident lanes)
-    runs after every chunk.
+    bits), and counting goes on in a fresh ladder (`--disk`). n_slots None
+    comes from ``hash_size_hint`` (jellyfish's -s; reads bytes / 10 when
+    None) as jasper_tpu sizes it: slots_for(max(hint, chunk_len),
+    GROW_LOAD_LIMIT). on_full_run(acc) runs after that check whenever the
+    settled lanes pass ``n_slots``: the caller evicts the levels to the
+    host, and counting goes on in a fresh ladder (or in the injected
+    ``accumulator``, which the callback empties itself). partition=(p, P)
+    counts only the p-th of P hash partitions. codes_sink collects the
+    parsed (codes, fill) chunks and codes_source replays them in place of
+    parsing. progress(n_chunks, resident lanes) runs after every chunk.
 
     mesh: a ("data",) mesh of more than one device counts on its devices
     instead of ``device``, each chunk padded to the chunk length and dealt
@@ -288,10 +299,12 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
 
     ingest: an IngestStats that gets the seconds blocked on the parser and,
     on one device, in the codes' copies."""
-    if (on_full is None and on_full_run is None) != (n_slots is None):
-        raise ValueError("n_slots goes with on_full or on_full_run")
     paths = list(paths)
     total_bytes = total_file_bytes(paths)
+    if n_slots is None:
+        if hash_size_hint is None:
+            hash_size_hint = max(1024, total_bytes // 10)
+        n_slots = slots_for(max(hash_size_hint, chunk_len), GROW_LOAD_LIMIT)
     # clamp the chunk to the input size (next power of two; .gz estimated at
     # 4x) so small runs don't pad tiny inputs to the full 8M-lane chunk
     est = total_bytes * (4 if any(isinstance(p, str) and p.endswith(".gz")
@@ -304,38 +317,41 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
     chunks = (iter(codes_source) if codes_source is not None
               else _prefetch(parse_chunks(paths, k, chunk_len, min_qual_char), ingest))
     if mesh is not None and key_filter is None and mesh.shape["data"] > 1:
-        return _count_reads_mesh(chunks, k, chunk_len, mesh, canonical, progress,
-                                 on_full, on_full_run, n_slots, partition, codes_sink)
-    acc = accumulator if accumulator is not None else RunAccumulator(
-        unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
-    n_chunks = 0
-    for codes, fill in chunks:
-        if codes_sink is not None:
-            codes_sink.append((codes, fill))
-        if on_full is not None and acc.n_resident_lanes() > n_slots:
-            on_full(_finish_to_table(acc, k)[0])
-            # jasper_tpu's fresh ladder takes its default stage, 8 units
-            acc = RunAccumulator(unit=acc.unit, stage_lanes=8 * acc.unit)
-        if on_full_run is not None and acc.n_settled_lanes() > n_slots:
-            on_full_run(acc)
-            if accumulator is None:
-                acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
-        if key_filter is None:
-            acc.push_raw(*extract_windows(ingest.upload(codes, device), k,
-                                          canonical=canonical, partition=partition))
-        else:
-            ukeys, mult = _unique_chunk_keys(codes, k, canonical)
-            mult = np.asarray(key_filter(ukeys, mult), dtype=np.uint32)
-            keep = mult > 0
-            acc.push(*run_from_keys(ukeys[keep], mult[keep], device))
-        n_chunks += 1
-        if progress is not None:
-            progress(n_chunks, acc.n_resident_lanes())
-    return acc
+        acc = _count_reads_mesh(chunks, k, device, chunk_len, mesh, canonical, progress,
+                                on_full, on_full_run, n_slots, partition, codes_sink)
+    else:
+        acc = accumulator if accumulator is not None else RunAccumulator(
+            unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
+        n_chunks = 0
+        for codes, fill in chunks:
+            if codes_sink is not None:
+                codes_sink.append((codes, fill))
+            if on_full is not None and acc.n_resident_lanes() > n_slots:
+                on_full(_finish_to_table(acc, k, device))
+                # jasper_tpu's fresh ladder takes its default stage, 8 units
+                acc = RunAccumulator(unit=acc.unit, stage_lanes=8 * acc.unit)
+            if on_full_run is not None and acc.n_settled_lanes() > n_slots:
+                on_full_run(acc)
+                if accumulator is None:
+                    acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
+            if key_filter is None:
+                acc.push_raw(*extract_windows(ingest.upload(codes, device), k,
+                                              canonical=canonical, partition=partition))
+            else:
+                ukeys, mult = _unique_chunk_keys(codes, k, canonical)
+                mult = np.asarray(key_filter(ukeys, mult), dtype=np.uint32)
+                keep = mult > 0
+                acc.push(*run_from_keys(ukeys[keep], mult[keep], device))
+            n_chunks += 1
+            if progress is not None:
+                progress(n_chunks, acc.n_resident_lanes())
+    if return_acc:
+        return acc
+    return _finish_to_table(acc, k, device, return_run)
 
 
-def _count_reads_mesh(chunks, k: int, chunk_len: int, mesh, canonical: bool, progress,
-                      on_full, on_full_run, n_slots, partition, codes_sink):
+def _count_reads_mesh(chunks, k: int, device, chunk_len: int, mesh, canonical: bool,
+                      progress, on_full, on_full_run, n_slots, partition, codes_sink):
     """count_reads over the mesh's "data" devices (jasper_tpu's
     _count_reads_mesh): groups of D chunks, each on its own device's ladder;
     a --disk dump or an eviction first stages the group so far, and
@@ -356,7 +372,7 @@ def _count_reads_mesh(chunks, k: int, chunk_len: int, mesh, canonical: bool, pro
             if group:
                 push_group(acc, group, chunk_len, k, extract)
                 group = []
-            on_full(_finish_to_table(acc, k)[0])
+            on_full(_finish_to_table(acc, k, device))
             acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
         if on_full_run is not None and acc.n_settled_lanes() > n_slots:
             if group:
@@ -376,13 +392,13 @@ def _count_reads_mesh(chunks, k: int, chunk_len: int, mesh, canonical: bool, pro
     return acc
 
 
-def _finish_to_table(acc: RunAccumulator, k: int):
-    """Merge the ladder and build the lookup table on its device: (tab,
-    run), or (None, None) when nothing was counted."""
+def _finish_to_table(acc: RunAccumulator, k: int, device, return_run: bool = False):
+    """Merge the ladder and build the lookup table on its device: the
+    table, or (table, run) with ``return_run``; nothing counted gives
+    empty_table(k, 64) on ``device`` and a run of None."""
     run = acc.finish()
-    if run is None:
-        return None, None
-    return build_table(run, k), run
+    tab = empty_table(k, 64, device) if run is None else build_table(run, k)
+    return (tab, run) if return_run else tab
 
 
 def pull_run_records(run):
@@ -503,11 +519,12 @@ def finish_runs_to_host(acc, extra_streams=()):
 # -- count_reads_to_host and its branches ------------------------------------
 
 
-def _empty_result(k: int):
-    W = words_per_kmer(k)
-    host_table = HostKmerTable.from_sorted_run(
-        k, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32))
-    return host_table, np.zeros((0, W), np.uint32), np.zeros(0, np.uint32), None
+def _empty_result(k: int, return_device_table: bool):
+    """jasper_tpu's result for nothing counted: an empty 64-slot host table
+    and no records, and no device table when one was asked for."""
+    host_table = HostKmerTable.empty(k, 64)
+    out = (host_table, np.zeros((0, host_table.W), np.uint32), np.zeros(0, np.uint32))
+    return out + (None,) if return_device_table else out
 
 
 def _push_u32(a: np.ndarray, device) -> torch.Tensor:
@@ -532,10 +549,13 @@ def _device_table_from_host_run(rh, rkeys, rcounts, k: int, device):
     return build_table((*run, N), k)
 
 
-def _host_result(rh, rkeys, rcounts, k: int, device, _log):
-    """Merged host records -> (host table, keys, counts, device table)."""
+def _host_result(rh, rkeys, rcounts, k: int, device, _log, return_device_table: bool):
+    """Merged host records -> (host table, keys, counts), and the device
+    table built from them when ``return_device_table``."""
     host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
     _log("count: host table built")
+    if not return_device_table:
+        return host_table, rkeys, rcounts
     dev_tab = _device_table_from_host_run(rh, rkeys, rcounts, k, device)
     if dev_tab is None:
         _log(f"count: device scan table not built ({len(rkeys)} records do "
@@ -546,32 +566,38 @@ def _host_result(rh, rkeys, rcounts, k: int, device, _log):
     return host_table, rkeys, rcounts, dev_tab
 
 
-def _host_finish_from_parts(parts, k: int, device, _log):
+def _host_finish_from_parts(parts, k: int, device, _log, return_device_table: bool):
     """Per-partition host streams, each in (h, key) order, concatenated in
     partition order (the top hash bits, so the whole is in (h, key) order)
     -> the counting result."""
     if not parts:
-        return _empty_result(k)
+        return _empty_result(k, return_device_table)
     rh = np.concatenate([p[0] for p in parts])
     rkeys = np.concatenate([p[1] for p in parts], axis=0)
     rcounts = np.concatenate([p[2] for p in parts])
     del parts
     _log(f"count: partitioned finish done ({len(rkeys)} records)")
-    return _host_result(rh, rkeys, rcounts, k, device, _log)
+    return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
 
 
 def count_reads_to_host(paths: Iterable[str], k: int, device,
-                        hash_size_hint: int | None = None,
-                        chunk_len: int = 1 << 23, tlog=None,
-                        scale_finish_lanes: int | None = None, mesh=None,
+                        hash_size_hint: int | None = None, mesh=None,
+                        chunk_len: int = 1 << 23, canonical: bool = True,
+                        min_qual_char: str | None = None, progress=None, tlog=None,
+                        scale_finish_lanes: int | None = None,
+                        return_device_table: bool = False,
                         ingest: IngestStats | None = None):
-    """Driver counting entry (jasper_tpu's count_reads_to_host with
-    return_device_table=True): count the reads on ``device`` and land the
-    distinct set on the host. Returns (host_table, keys uint32 [N, W],
-    counts uint32 [N], device table) with the records in (mix32, key)
-    order; the device table (int32 bits) is byte-identical to
-    host_table.tab, or None for empty input or a table too large to build
-    on the card.
+    """Driver counting entry (jasper_tpu's count_reads_to_host): count the
+    reads on ``device`` and land the distinct set on the host. Returns
+    (host_table, keys uint32 [N, W], counts uint32 [N]) with the records in
+    (mix32, key) order, and no table is built on the device. With
+    return_device_table=True a fourth element is the device table (int32
+    bits), byte-identical to host_table.tab, or None for empty input or a
+    table too large to build on the card.
+
+    canonical=False counts forward keys and min_qual_char drops FASTQ/SAM
+    bases of a lower quality character (-Q), on every branch; progress
+    (n_chunks, resident lanes) runs after every chunk of every pass.
 
     hash_size_hint is jellyfish's -s estimate of the distinct keys (reads
     bytes / 10). The finish budget in lanes is ``scale_finish_lanes``, else
@@ -607,6 +633,9 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
         while est // P > budget and P < 16:
             P *= 2
     seekable = all(isinstance(q, str) for q in paths)
+    # what every pass over the reads takes, on every branch
+    pass_kw = dict(canonical=canonical, min_qual_char=min_qual_char, progress=progress,
+                   ingest=ingest)
     if P > 1 and mesh is None:
         G = _env_pow2("JT_COUNT_GROUPS")
         if G is not None and P % G:
@@ -627,7 +656,8 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
         try:
             return _count_partitioned_single_pass(
                 paths, k, device, P, G, chunk_len,
-                resident_bytes // lane_bytes(k), _log, ingest)
+                resident_bytes // lane_bytes(k), _log,
+                return_device_table=return_device_table, **pass_kw)
         except PartitionSliceOverflow:
             if not seekable:
                 raise
@@ -637,7 +667,7 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
             _log(f"count: {P} hash partitions in {P} passes over a "
                  f"{mesh.shape['data']}-device mesh")
         return _count_partitioned(paths, k, device, P, chunk_len, budget, _log, mesh,
-                                  ingest)
+                                  return_device_table=return_device_table, **pass_kw)
 
     evicted: list = []
     pending: list = []
@@ -655,38 +685,45 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
 
     acc = count_reads(paths, k, device, n_slots=max(2 * budget, 1024),
                       chunk_len=chunk_len, on_full_run=_evict, mesh=mesh,
-                      ingest=ingest)
+                      return_acc=True, **pass_kw)
     resident = acc.n_resident_lanes()
     _log(f"count: device counting done ({resident} resident lanes)")
     _materialize_pending()
     if evicted or resident > budget:
         merged = finish_runs_to_host(acc, extra_streams=evicted)
         if merged is None:
-            return _empty_result(k)
+            return _empty_result(k, return_device_table)
         rh, rkeys, rcounts = merged
         _log(f"count: host-merge finish done ({len(rkeys)} records)")
-        return _host_result(rh, rkeys, rcounts, k, device, _log)
+        return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
 
-    dev_tab, run = _finish_to_table(acc, k)
+    if return_device_table:
+        dev_tab, run = _finish_to_table(acc, k, device, return_run=True)
+    else:
+        run = acc.finish()  # the run alone: no table is built on the device
     if run is None:
-        return _empty_result(k)
-    _log("count: device scan table built")
+        return _empty_result(k, return_device_table)
+    if return_device_table:
+        _log("count: device scan table built")
     rh, rkeys, rcounts = pull_run_records(run)
     del run
     _log(f"count: run pull done ({len(rkeys)} records)")
     host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
     _log("count: host table built")
-    return host_table, rkeys, rcounts, dev_tab
+    out = (host_table, rkeys, rcounts)
+    return out + (dev_tab,) if return_device_table else out
 
 
 def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
-                       budget: int, _log, mesh=None, ingest=None):
+                       budget: int, _log, mesh=None, canonical: bool = True,
+                       min_qual_char: str | None = None, progress=None,
+                       return_device_table: bool = False, ingest=None):
     """P passes over the reads, pass p counting partition p alone through
     the extraction filter (no slice capacity): the fallback after a
-    PartitionSliceOverflow. The parsed code chunks of pass 0 are kept in
-    host memory for the later passes when the reads are at most
-    JT_CODES_CACHE_BYTES. Each pass's levels are pulled while the next
-    pass counts, and merged on the host."""
+    PartitionSliceOverflow. The parsed code chunks of pass 0 (parsed under
+    ``min_qual_char``) are kept in host memory for the later passes when the
+    reads are at most JT_CODES_CACHE_BYTES. Each pass's levels are pulled
+    while the next pass counts, and merged on the host."""
     cache_cap = _env_int("JT_CODES_CACHE_BYTES")
     use_cache = total_file_bytes(paths) <= (CODES_CACHE_BYTES if cache_cap is None
                                             else cache_cap)
@@ -710,10 +747,11 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
     for p in range(P):
         acc = count_reads(
             paths, k, device, n_slots=budget, chunk_len=chunk_len,
+            progress=progress, canonical=canonical, min_qual_char=min_qual_char,
             on_full_run=_valve, partition=(p, P),
             codes_sink=codes_cache if use_cache and p == 0 else None,
             codes_source=codes_cache if use_cache and p > 0 else None, mesh=mesh,
-            ingest=ingest)
+            return_acc=True, ingest=ingest)
         _materialize_prev()  # the previous pass's pulls have landed by now
         thunks = start_all_level_pulls(acc)
         thunks.extend((lambda s=s: s) for s in valve_streams)
@@ -721,20 +759,23 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
         pending.append(thunks)
         _log(f"count: partition pass {p + 1}/{P} counted, pull in flight")
     _materialize_prev()
-    return _host_finish_from_parts(parts, k, device, _log)
+    return _host_finish_from_parts(parts, k, device, _log, return_device_table)
 
 
 def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
-                                   chunk_len: int, n_slots: int, _log, ingest=None):
+                                   chunk_len: int, n_slots: int, _log,
+                                   canonical: bool = True,
+                                   min_qual_char: str | None = None, progress=None,
+                                   return_device_table: bool = False, ingest=None):
     """Grouped partitioned counting: G passes over the reads, pass g
     holding the hash subrange [g/G, (g+1)/G) as P/G partition ladders
     (PartitionedRunAccumulator), so every window of a pass is extracted and
     stage-sorted once. After a pass each ladder merges on the device and
     its run is pulled while the next ladder merges and the next pass
     counts; pulls that have landed are taken between chunks so their device
-    copies go. If the resident ladders pass ``n_slots`` (the estimate lied
-    low), all of them evict to the host at once; the partitions' streams
-    merge on the host."""
+    copies go, before the caller's ``progress`` runs. If the resident
+    ladders pass ``n_slots`` (the estimate lied low), all of them evict to
+    the host at once; the partitions' streams merge on the host."""
     PL = P // G
     bits_total = P.bit_length() - 1
     n_windows = chunk_len - k + 1
@@ -751,9 +792,11 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
             _take(p, t)
         pending.clear()
 
-    def _materialize_landed(_n_chunks, _resident):
+    def _materialize_landed(n_chunks, resident):
         for i in reversed([i for i, (_, t) in enumerate(pending) if t.ready()]):
             _take(*pending.pop(i))
+        if progress is not None:
+            progress(n_chunks, resident)
 
     for g in range(G):
         p0 = g * PL
@@ -772,9 +815,10 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
                  f"({len(pending)} level runs in flight)")
 
         count_reads(paths, k, device, n_slots=n_slots, chunk_len=chunk_len,
-                    progress=_materialize_landed, on_full_run=_evict,
+                    progress=_materialize_landed, canonical=canonical,
+                    min_qual_char=min_qual_char, on_full_run=_evict,
                     partition=(g, G) if G > 1 else None, accumulator=pacc,
-                    ingest=ingest)
+                    return_acc=True, ingest=ingest)
         pacc.drain()
         _log(f"count: pass {g + 1}/{G} counted "
              f"({pacc.n_resident_lanes()} resident lanes, {PL} ladders)")
@@ -789,4 +833,4 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
     _materialize_pending()
     parts = [ss[0] if len(ss) == 1 else merge_host_streams(ss)
              for ss in part_streams.values() if ss]
-    return _host_finish_from_parts(parts, k, device, _log)
+    return _host_finish_from_parts(parts, k, device, _log, return_device_table)

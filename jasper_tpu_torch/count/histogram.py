@@ -3,7 +3,8 @@ jasper_tpu/count/histogram.py:25-80, which imports jax at load).
 
 ``histogram_rows_from_counts``, ``write_histogram``, ``read_histogram`` and
 ``threshold_from_histogram`` are copies; ``histogram_rows`` reads a torch
-table (kernel K7, jasper_tpu/table/kmer_table.py:376 ``table_histogram``),
+table through table/kmer_table.py's ``table_histogram`` (kernel K7, as
+jasper_tpu's reads jasper_tpu/table/kmer_table.py:376), and
 ``histogram_rows_host`` the same column block of a host table.
 Rows are what `jellyfish histo` prints: nonzero (bin, frequency) with
 low=1, high=10000, inc=1 and every count above high in bin 10001.
@@ -14,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jasper_tpu_torch.ops.hashing import M32
 from jasper_tpu_torch.ops.kmer import words_per_kmer
+from jasper_tpu_torch.table.kmer_table import table_histogram
 from jasper_tpu_torch.table.layout import ROW_U32, slot_words_for
 
 HISTO_HIGH = 10000
@@ -23,15 +24,10 @@ HISTO_HIGH = 10000
 
 def histogram_rows(tab: torch.Tensor, k: int, high: int = HISTO_HIGH
                    ) -> list[tuple[int, int]]:
-    """Nonzero (col, freq) rows of the table's occupied slots: a bincount
-    of the counts column block (word-major rows: columns [W*S, (W+1)*S)),
-    clipped at high + 1, bin 0 (empty slots) dropped. Runs on the table's
-    device; only the high + 2 bins come back."""
-    W = words_per_kmer(k)
-    S = ROW_U32 // slot_words_for(W)
-    counts = tab[:, W * S : (W + 1) * S].reshape(-1).to(torch.int64) & M32
-    hist = torch.bincount(torch.clamp(counts, max=high + 1),
-                          minlength=high + 2).cpu().numpy()
+    """Nonzero (col, freq) rows of the table's occupied slots: the
+    table_histogram (K7) clipped at high + 1, run on the table's device;
+    only the high + 2 bins come back."""
+    hist = table_histogram(tab, max_count=high + 1, k=k).cpu().numpy()
     return [(c, int(hist[c])) for c in range(1, high + 2) if hist[c] > 0]
 
 

@@ -154,13 +154,18 @@ def _window_order(keys, valid):
     return h, _lexsort(_sort_cols((~valid).to(torch.int64), h, keys))
 
 
-def make_run_ones(keys, valid):
+def make_run_ones(keys, valid, with_flag: bool = False):
     """Windows -> UNCOMPACTED run, multiplicity 1 per valid lane (the
     counting hot path): one multi-key sort, totals are run lengths, and
     duplicates stay interspersed as dead lanes. keys int64 [B, W] (values
-    < 2^32), valid bool [B] -> (h, keys, totals)."""
+    < 2^32), valid bool [B] -> (h, keys, totals); with_flag=True appends
+    the sorted validity flag, ``valid`` gathered through the sort's
+    permutation: True for every valid lane, duplicates included (the lanes
+    whose h is meaningful and ascending). On the card the totals come from
+    K4f's uncompacted mode and the flag from the permutation."""
     h, perm = _window_order(keys, valid)
-    return run_totals(h, keys, valid, perm, compact=False)
+    run = run_totals(h, keys, valid, perm, compact=False)
+    return (*run, valid[perm]) if with_flag else run
 
 
 def _compact(h, keys, counts):
@@ -597,11 +602,11 @@ class RunAccumulator:
             run = self._merge(self._pop(j), (h[:L], keys[:L], counts[:L], n_act))
             n_class = int(run[3])
 
-    def push(self, h, keys, counts, n_act):
-        """Add a compacted run (actives first, n_act of them) to the ladder,
-        merging down the size classes (a stage flush's output, a partition
-        slice, or run_from_keys's filtered keys)."""
-        self._cascade((h, keys, counts, n_act), int(n_act))
+    def push(self, h, keys, counts, n_active):
+        """Add a compacted run (actives first, n_active of them) to the
+        ladder, merging down the size classes (a stage flush's output, a
+        partition slice, or run_from_keys's filtered keys)."""
+        self._cascade((h, keys, counts, n_active), int(n_active))
 
     def push_uncompacted(self, h, keys, counts):
         """Add a run whose dead lanes may be interspersed (jasper_tpu's

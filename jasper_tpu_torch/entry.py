@@ -81,7 +81,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     Raises on any mismatch; returns what it checked."""
     import tempfile
 
-    from jasper_tpu_torch.count.counter import _finish_to_table, count_reads
+    from jasper_tpu_torch.count.counter import count_reads
     from jasper_tpu_torch.ops.codes import encode
     from jasper_tpu_torch.ops.kmer import canonical_windows_fast
     from jasper_tpu_torch.parallel.scanner import local_data_mesh, select_scanner
@@ -162,9 +162,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         mesh_dp = local_data_mesh(devices)
         if (mesh_dp is not None) != (n_devices > 1):
             raise AssertionError("dryrun: the data mesh")
-        tab_dp, _ = _finish_to_table(count_reads([fa], k, device, chunk_len=1024,
-                                                 mesh=mesh_dp), k)
-        tab_1, _ = _finish_to_table(count_reads([fa], k, device, chunk_len=1024), k)
+        tab_dp = count_reads([fa], k, device, chunk_len=1024, mesh=mesh_dp)
+        tab_1 = count_reads([fa], k, device, chunk_len=1024)
         if not torch.equal(tab_dp, tab_1):
             raise AssertionError("dryrun: mesh counting table != single-device table")
 

@@ -7,9 +7,9 @@ raise on it), so every value here is an int64 holding a uint32 in
 int64 product overflows, and every left shift is masked back to 32 bits.
 The CUDA probe (csrc/probe.cu) computes the same hash in native uint32.
 
-The host helpers at the end (hash_words_np, home_of_int) are the numpy and
-int forms the host table's scalar probe uses (counterparts of
-jasper_tpu/ops/hashing.py:49-52,88-92).
+The host helpers at the end (hash_words_np, home_of_np, home_of_int) are
+the numpy and int forms the host table's insert and scalar probe use
+(counterparts of jasper_tpu/ops/hashing.py:49-92 on numpy and ints).
 """
 
 from __future__ import annotations
@@ -102,6 +102,17 @@ def hash_words_np(words: np.ndarray) -> np.ndarray:
         h = h * u(0xC2B2AE35)
         h = h ^ (h >> u(16))
     return h
+
+
+def home_of_np(h: np.ndarray, n_buckets: int, owner_bits: int = 0) -> np.ndarray:
+    """home_of over a uint32 numpy array -> uint32: the product of a
+    uint32 and n_buckets < 2^32 fits uint64."""
+    h = np.asarray(h, dtype=np.uint64)
+    if n_buckets <= 1:
+        return np.zeros(h.shape, np.uint32)
+    if owner_bits:
+        h = (h << np.uint64(owner_bits)) & np.uint64(M32)
+    return ((h * np.uint64(n_buckets)) >> np.uint64(32)).astype(np.uint32)
 
 
 def home_of_int(h: int, n_buckets: int, owner_bits: int = 0) -> int:

@@ -484,7 +484,7 @@ def run_pipeline(
             ingest = IngestStats()
             host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
                 reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage,
-                mesh=mesh, ingest=ingest)
+                mesh=mesh, return_device_table=True, ingest=ingest)
             stage(ingest.line())
             write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
             stage("count: histogram done")

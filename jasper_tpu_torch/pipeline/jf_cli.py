@@ -257,10 +257,11 @@ def cmd_count(argv) -> int:
         key_filter=key_filter,
         on_full=dump_intermediate if args.disk else None,
         mesh=local_data_mesh(devices=local_devices(device)),
+        return_acc=True,
     )
 
     if intermediates:
-        tab, _ = counter._finish_to_table(acc, args.mer_len)
+        tab = counter._finish_to_table(acc, args.mer_len, device)
         t1 = time.time()
         # merge intermediates + the final table (SUM)
         from jasper_tpu_torch.count.merge import merge_jf_files

@@ -32,19 +32,25 @@ from jasper_tpu_torch.table.probe import to_i32_bits
 _NEG = -(1 << 62)  # below every home * S - rank
 
 
-def build_from_run(h, keys, counts, n_buckets: int):
+def build_from_run(h, keys, counts, n_buckets: int, owner_bits: int = 0):
     """Materialize a bucketed count table from one sorted run.
 
     h, keys [B, W], counts: int64 holding uint32 (count 0 == dead lane;
     dead lanes may be interspersed). Active lanes must be distinct keys in
     (h, key) order. Returns (tab int32 [n_buckets + PAD_BUCKETS, 64], the
     uint32 table's bit pattern; n_failed int): n_failed > 0 means some keys
-    landed past PAD_BUCKETS of their home, and nothing of them was written."""
+    landed past PAD_BUCKETS of their home, and nothing of them was written.
+
+    owner_bits: the top hash bits that name a shard are skipped before the
+    home bits (home_of), as lookup_kmers(owner_bits=) reads them. The
+    placement equals jasper_tpu's on any run, but the waterfall is exact
+    only where the homes do not decrease along the run: under owner bits,
+    a run of one owner's keys (the top owner_bits of h equal)."""
     B, W = keys.shape
     S = ROW_U32 // slot_words_for(W)
     n_rows = n_buckets + PAD_BUCKETS
     active = counts > 0
-    home = home_of(h, n_buckets)
+    home = home_of(h, n_buckets, owner_bits)
     # rank among ACTIVE lanes: interspersed dead lanes must not open gaps in
     # the cascade, or the all-full probe-chain invariant breaks
     rank = torch.cumsum(active.to(torch.int64), dim=0) - 1
@@ -62,21 +68,32 @@ def build_from_run(h, keys, counts, n_buckets: int):
     return flat.view(n_rows, ROW_U32), int(failed.sum())
 
 
-def build_table(run, k: int):
+def build_table(run, k: int, load_factor: float | None = None, owner_bits: int = 0):
     """Size the table for the run and build it, doubling the slots on the
     (rare) overflow past PAD_BUCKETS, as jasper_tpu's build_table does.
     run = (h, keys, counts, n_active) from RunAccumulator.finish(): actives
     lead, so only the first n_active lanes are placed (dead lanes add
-    nothing to the table). Returns the int32-bit table that DeviceScanner
-    reads."""
+    nothing to the table). load_factor None takes adaptive_load;
+    owner_bits as in build_from_run, for a run of one owner's keys (a
+    run of several raises). Returns the int32-bit table that
+    DeviceScanner reads."""
     h, keys, counts, n_active = run
     n = int(n_active)
     h, keys, counts = h[:n], keys[:n], counts[:n]
+    if owner_bits and n:
+        # several owners' homes fall back along the run: jasper_tpu's
+        # doubling never ends there (ROADMAP F13)
+        owner = h >> (32 - owner_bits)
+        if int(owner.min()) != int(owner.max()):
+            raise ValueError(f"build_table(owner_bits={owner_bits}): the run holds "
+                             "the keys of more than one owner")
+    if load_factor is None:
+        load_factor = adaptive_load(n, k)
     S = ROW_U32 // slot_words_for(words_per_kmer(k))
-    n_slots = slots_for(max(n, 1), adaptive_load(n, k))
+    n_slots = slots_for(max(n, 1), load_factor)
     while True:
         n_buckets = max(1, -(-n_slots // S))
-        tab, n_failed = build_from_run(h, keys, counts, n_buckets)
+        tab, n_failed = build_from_run(h, keys, counts, n_buckets, owner_bits)
         if n_failed == 0:
             return tab
         del tab

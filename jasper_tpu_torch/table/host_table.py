@@ -1,8 +1,9 @@
 """Host (numpy) count table, jax-free.
 
-Copy of jasper_tpu.table.host_table.HostKmerTable (construction, and the
-queries of host_table.py:34-40,165-268 that the jellyfish CLI's ``query``
-and ``--if`` and the ``dna_jellyfish`` bindings use): that module imports
+Copy of jasper_tpu.table.host_table.HostKmerTable (construction, the host
+insert of host_table.py:111-162, and the queries of host_table.py:165-268
+that the jellyfish CLI's ``query`` and ``--if`` and the ``dna_jellyfish``
+bindings use): that module imports
 jasper_tpu.table.kmer_table, and with it jax, at load. Layout and hash are
 identical, so ``tab`` is byte-identical to jasper_tpu's for the same
 records and load factor, and a jasper_tpu table (``HostKmerTable.tab`` or
@@ -18,7 +19,7 @@ import torch
 
 from jasper_tpu_torch.io import native_jf
 from jasper_tpu_torch.ops.codes import encode
-from jasper_tpu_torch.ops.hashing import hash_words_np, home_of_int
+from jasper_tpu_torch.ops.hashing import hash_words_np, home_of_int, home_of_np
 from jasper_tpu_torch.ops.kmer import (
     canonical_windows_fast,
     forward_windows,
@@ -88,6 +89,60 @@ class HostKmerTable:
         W = words_per_kmer(k)
         n_buckets = max(1, -(-n_slots // (ROW_U32 // slot_words_for(W))))
         return cls(k, np.zeros((n_buckets + PAD_BUCKETS, ROW_U32), dtype=np.uint32))
+
+    def insert_np(self, keys: np.ndarray, counts: np.ndarray) -> None:
+        """Host insert in place, in claim rounds (a copy of jasper_tpu's):
+        keys uint32 [B, W], counts uint32 [B]; keys may repeat, and their
+        counts add (mod 2^32). Each round gathers the pending lanes' rows:
+        a lane whose key is there adds its count, the others claim their
+        row's first empty slot with a scatter-min of lane ids (np.minimum.at,
+        so the lowest lane wins, as in jasper_tpu), and a lane moves a bucket
+        on only past a full one. Raises when a key runs past PAD_BUCKETS of
+        its home."""
+        W, S = self.W, self.slots
+        B = keys.shape[0]
+        keys = np.ascontiguousarray(keys, dtype=np.uint32)
+        counts = np.asarray(counts, dtype=np.uint32)
+        flat = self.tab.reshape(-1)  # word-flat (rows may have spare words)
+        ids = np.arange(B, dtype=np.uint32)
+        home = home_of_np(hash_words_np(keys), self.n_buckets).astype(np.int64)
+        off = np.zeros(B, dtype=np.int64)
+        pending = np.ones(B, dtype=bool)
+        claim = np.full(self.tab.shape[0] * S, 0xFFFFFFFF, dtype=np.uint32)
+        rounds = 0
+        while pending.any():
+            b = home + off
+            rows = self.tab[b]
+            occ = rows[:, W * S : (W + 1) * S] != 0
+            key_eq = occ.copy()
+            for w in range(W):
+                key_eq &= rows[:, w * S : (w + 1) * S] == keys[:, w : w + 1]
+            hit_slot = key_eq.argmax(axis=1)
+            is_match = pending & key_eq.any(axis=1)
+            has_empty = (~occ).any(axis=1)
+            first_empty = (~occ).argmax(axis=1)
+            is_empty = pending & ~is_match & has_empty
+            is_full = pending & ~is_match & ~has_empty
+            if (is_full & (off >= PAD_BUCKETS)).any():
+                raise RuntimeError("host table full (probe ran past pad)")
+
+            np.add.at(flat, b[is_match] * ROW_U32 + W * S + hit_slot[is_match],
+                      counts[is_match])
+
+            tgt = b * S + first_empty  # slot-granular claim index
+            np.minimum.at(claim, tgt[is_empty], ids[is_empty])
+            won = is_empty & (claim[tgt] == ids)
+            wb = b[won] * ROW_U32 + first_empty[won]
+            for w in range(W):
+                flat[wb + w * S] = keys[won, w]
+            flat[wb + W * S] = counts[won]
+            claim[tgt[is_empty]] = 0xFFFFFFFF
+
+            pending = pending & ~is_match & ~won
+            off[is_full] += 1
+            rounds += 1
+            if rounds > self.n_buckets * S + 64:
+                raise RuntimeError("host insert did not terminate")
 
     # -- queries (copies of jasper_tpu/table/host_table.py:165-268) ----------
 

@@ -18,7 +18,13 @@ import torch
 from jasper_tpu_torch.count.sorted_runs import _key_cols, _lexsort
 from jasper_tpu_torch.ops.hashing import M32, home_of, mix32, mul32
 from jasper_tpu_torch.ops.kmer import words_per_kmer
-from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32, slot_words_for, slots_for
+from jasper_tpu_torch.table.layout import (  # noqa: F401 (jasper_tpu's names here)
+    PAD_BUCKETS,
+    ROW_U32,
+    adaptive_load,
+    slot_words_for,
+    slots_for,
+)
 from jasper_tpu_torch.table.probe import lookup_kmers, to_i32_bits
 from jasper_tpu_torch.utils.device import resolve_device
 
@@ -207,6 +213,22 @@ def insert_kmers(tab, keys, counts, active, max_rounds: int = 512,
         r += 1
     out = (tab, lanes.numel() + failed, placed)
     return (*out, r) if with_rounds else out
+
+
+def table_histogram(tab, max_count: int, k: int | None = None, W: int | None = None):
+    """Count-frequency histogram over the occupied slots, as jasper_tpu's
+    table_histogram (jellyfish histo's bucketing): the bincount of the
+    counts column block (word-major rows: columns [W*S, (W+1)*S)), read as
+    unsigned from the int32 bits and clipped at ``max_count``, with bin 0
+    (empty slots) zeroed. Returns int64 [max_count + 1] on the table's
+    device. Give ``k`` or ``W``."""
+    if W is None:
+        W = words_per_kmer(k)
+    S = ROW_U32 // slot_words_for(W)
+    counts = _u32(tab[:, W * S : (W + 1) * S].reshape(-1))
+    hist = torch.bincount(torch.clamp(counts, max=max_count), minlength=max_count + 1)
+    hist[0] = 0
+    return hist
 
 
 def table_stats(tab, k: int):

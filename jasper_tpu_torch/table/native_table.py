@@ -1,6 +1,6 @@
 """ctypes bridge to the native host-table query library (native/jt_table.cc).
 
-jax-free copy of jasper_tpu/table/native_table.py:20-130 (that module
+jax-free copy of jasper_tpu/table/native_table.py:20-131 (that module
 cannot be imported without jax). The repair walk's string queries go
 through this library; unlike jasper_tpu's CountSource, the port has no
 silent pure-Python fallback (see polish.engine.CountSource).
@@ -56,6 +56,11 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
         ]
+        lib.jt_effective_key.restype = None
+        lib.jt_effective_key.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
         _lib = lib
         return _lib
 
@@ -109,4 +114,14 @@ class NativeTableQuery:
             b, len(b), starts.ctypes.data_as(ctypes.c_void_p), len(starts),
             out.ctypes.data_as(ctypes.c_void_p),
         )
+        return out
+
+    def effective_key(self, s: str) -> np.ndarray:
+        """The packed canonical key (uint32 [W]) that query_str probes for
+        ``s`` (jt_effective_key): its first k bases, 'A' in place of every
+        base from the first non-ACGT character or the string's end on."""
+        b = s.encode("ascii", errors="replace")
+        out = np.zeros(self.W, dtype=np.uint32)
+        self._lib.jt_effective_key(self.k, self.W, b, len(b),
+                                   out.ctypes.data_as(ctypes.c_void_p))
         return out

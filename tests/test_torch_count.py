@@ -67,7 +67,7 @@ def test_count_reads_to_host_matches(tmp_path, k):
         [fq], k, chunk_len=1024, return_device_table=True)
     logs = []
     thost, tkeys, tcounts, tdev = tcounter.count_reads_to_host(
-        [fq], k, "cpu", chunk_len=1024, tlog=logs.append)
+        [fq], k, "cpu", chunk_len=1024, tlog=logs.append, return_device_table=True)
     np.testing.assert_array_equal(tkeys, jkeys)
     np.testing.assert_array_equal(tcounts, jcounts)
     np.testing.assert_array_equal(thost.tab, jhost.tab)
@@ -97,7 +97,8 @@ def test_count_reads_to_host_matches(tmp_path, k):
 def test_count_empty_input(tmp_path):
     fq = tmp_path / "r.fq"
     fq.write_text("@r0\nACGTN\n+\nIIIII\n")
-    host, keys, counts, dev = tcounter.count_reads_to_host([str(fq)], 15, "cpu")
+    host, keys, counts, dev = tcounter.count_reads_to_host([str(fq)], 15, "cpu",
+                                                           return_device_table=True)
     assert keys.shape == (0, 1) and counts.shape == (0,) and dev is None
     assert not host.tab.any()
 
@@ -112,12 +113,13 @@ def test_count_past_budget_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(tcounter, "finish_budget_lanes", lambda device, k: 2000)
     logs = []
     part = tcounter.count_reads_to_host([fq], 15, "cpu", hash_size_hint=4000,
-                                        chunk_len=1024, tlog=logs.append)
+                                        chunk_len=1024, tlog=logs.append,
+                                        return_device_table=True)
     assert "count: 2 hash partitions in 1 passes" in logs[1], logs
     monkeypatch.setattr(tcounter, "finish_budget_lanes", lambda device, k: 100)
     logs2 = []
     evict = tcounter.count_reads_to_host([fq], 15, "cpu", chunk_len=1024,
-                                         tlog=logs2.append)
+                                         tlog=logs2.append, return_device_table=True)
     assert any(m.startswith("count: eviction started") for m in logs2), logs2
     assert any(m.startswith("count: host-merge finish done") for m in logs2), logs2
     for got in (part, evict):

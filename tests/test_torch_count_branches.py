@@ -39,7 +39,7 @@ def classic(tmp_path_factory):
         fq, _ = _reads_fq(tmp_path_factory.mktemp(f"k{k}"), 500 + k, n_reads=250)
         logs = []
         res = tcounter.count_reads_to_host([fq], k, "cpu", chunk_len=1024,
-                                           tlog=logs.append)
+                                           tlog=logs.append, return_device_table=True)
         assert "count: device scan table built" in logs
         resident = int(next(m for m in logs if "counting done" in m)
                        .split("(")[1].split()[0])
@@ -91,7 +91,7 @@ def check_branch(classic, monkeypatch, k, env, line, branch=""):
         [fq], k, chunk_len=1024, return_device_table=True, **kw)
     logs = []
     got = tcounter.count_reads_to_host([fq], k, "cpu", chunk_len=1024,
-                                       tlog=logs.append, **kw)
+                                       tlog=logs.append, return_device_table=True, **kw)
     assert any(m.startswith(line) for m in logs), logs
     if branch == "host_merge":
         assert not any("eviction" in m for m in logs), logs
@@ -117,7 +117,7 @@ def test_ppass_filter_matches(classic, monkeypatch, cache):
         return_device_table=True)
     logs = []
     got = tcounter._count_partitioned([fq], k, torch.device("cpu"), 4, 1024,
-                                      1 << 30, logs.append)
+                                      1 << 30, logs.append, return_device_table=True)
     assert "count: partition pass 4/4 counted, pull in flight" in logs
     _assert_same(got, (jkeys, jcounts), jhost.tab)
     _assert_same(got, want[1:3], want[0].tab)
@@ -132,7 +132,8 @@ def test_device_table_too_large_is_left_to_the_scanner(classic, monkeypatch):
     monkeypatch.setattr(tcounter, "DEV_BUILD_SHARE", 0.0)
     logs = []
     got = tcounter.count_reads_to_host([fq], k, "cpu", chunk_len=1024,
-                                       tlog=logs.append, scale_finish_lanes=0)
+                                       tlog=logs.append, scale_finish_lanes=0,
+                                       return_device_table=True)
     assert got[3] is None
     assert any(m.startswith("count: device scan table not built") for m in logs)
     np.testing.assert_array_equal(got[0].tab, want[0].tab)

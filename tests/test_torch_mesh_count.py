@@ -67,7 +67,8 @@ def test_count_reads_mesh_matches(reads, in_step, k, D):
     and the single-device count's."""
     fq = reads[k]
     jacc = jcounter.count_reads([fq], k, chunk_len=1024, mesh=_jmesh(D), return_acc=True)
-    tacc = tcounter.count_reads([fq], k, "cpu", chunk_len=1024, mesh=_tmesh(D))
+    tacc = tcounter.count_reads([fq], k, "cpu", chunk_len=1024, mesh=_tmesh(D),
+                                return_acc=True)
     assert tacc.D == D
     assert tacc.n_resident_lanes() == jacc.n_resident_lanes()
     assert sorted(tacc.levels) == sorted(jacc.levels)
@@ -81,11 +82,11 @@ def test_count_reads_mesh_matches(reads, in_step, k, D):
             for a, b in ((th, jh[d]), (tk_, jk[d]), (tc, jc[d])):
                 np.testing.assert_array_equal(a[live], b[live])
     jtab, jrun = jcounter._finish_to_table(jacc, k, return_run=True)
-    ttab, trun = tcounter._finish_to_table(tacc, k)
+    ttab, trun = tcounter._finish_to_table(tacc, k, "cpu", return_run=True)
     for a, b in zip(_actives(trun), _actives(jrun)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(table_to_numpy(ttab), np.asarray(jtab))
-    one, _ = tcounter._finish_to_table(tcounter.count_reads([fq], k, "cpu", chunk_len=1024), k)
+    one = tcounter.count_reads([fq], k, "cpu", chunk_len=1024)
     assert torch.equal(ttab, one)
 
 
@@ -122,7 +123,8 @@ def test_count_reads_to_host_mesh_matches(reads, in_step, monkeypatch, route, k)
         [fq], k, chunk_len=1024, mesh=_jmesh(4), return_device_table=True, **kw)
     logs = []
     host, keys, counts, dev = tcounter.count_reads_to_host(
-        [fq], k, "cpu", chunk_len=1024, mesh=_tmesh(4), tlog=logs.append, **kw)
+        [fq], k, "cpu", chunk_len=1024, mesh=_tmesh(4), tlog=logs.append,
+        return_device_table=True, **kw)
     assert any(m.startswith(line) for m in logs), logs
     if route == "host_merge":
         assert not any("eviction" in m for m in logs), logs

@@ -163,7 +163,7 @@ def test_select_scanner_reuses_device_table(tmp_path):
     with open(fq, "w") as f:
         for i, r in enumerate(G.tiled_reads(G.random_genome(rng, 3000), 100, 5)):
             f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
-    host, _, _, dev = count_reads_to_host([str(fq)], 25, "cpu")
+    host, _, _, dev = count_reads_to_host([str(fq)], 25, "cpu", return_device_table=True)
     assert select_scanner(host, 25, "cpu", device_tab=dev).tab is dev
     uploaded = select_scanner(host, 25, "cpu").tab
     assert uploaded is not dev and torch.equal(uploaded, dev)
