@@ -2,14 +2,15 @@
 """Drive the PyTorch/CUDA port (jasper_tpu_torch) once on one NVIDIA card.
 
     python3 chip_smoke.py [--genome-mbp 2] [--race-kb 20000] [--big-kb 100000]
-                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19]
+                          [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20]
                           [--seed 7]
                           [--workdir DIR] [--ab-probe OTHER_probe.cu]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
-  2. build csrc/*.cu (the probe K1, the ladder's K4m and K4f) for sm_90a
-     from the checkout (timed);
+  2. build csrc/*.cu (the probe K1, the ladder's K4m and K4f, extraction K3
+     and the hash K2) for sm_90a from the checkout, one nvcc a source, all
+     started together (timed);
   3. kernel vs plain: the CUDA bucket probe against its plain torch twin on
      the same CUDA tensors, bit for bit, at k=25 and k=37, on a fast-load
      table and a dense (load >= 0.85) one, 4 M lanes of present, absent and
@@ -34,7 +35,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   6. the main path, the driver from reads: jasper_tpu_torch.pipeline.cli
      -a asm.fa -r reads.fq -k 25 -p 2 -t 1 -b 25000000 --device cuda on the
      whole race input (the classic single-ladder count). Checks: the probe
-     kernel and both K4 kernels (K4m merges, K4f flushes) launched (counts
+     kernel, both K4 kernels (K4m merges, K4f flushes), K3 (extraction, in
+     the count and the scan) and K2 (the flushes' hash) launched (counts
      reset just before), the scanner took the
      device-built table, which equals the host-built one, the native repair
      queries are bound, no counting step peaked past the budget's lane
@@ -62,15 +64,17 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      from the merged run equal to phase 6's scanner table, one level pull
      equal to a blocking .cpu() of the same level, no step past the lane
      multiple, K4m and K4f launched (counted per branch from 0, gated over
-     the phase). Reports each branch's seconds (counting, pulls, host
-     merge, device build), and the host mix32 against pulling h;
+     the phase), K2 and K3 launched in every branch and K3's fused
+     partition filter in the grouped ones. Reports each branch's seconds
+     (counting, pulls, host merge, device build), and the host mix32
+     against pulling h;
   8. chromosome scale, the driver from reads on make_data(--big-kb, 40)
      (race100: made in a child process while phases 3-7 run, and run after
      race20's files are deleted), phase 6's arguments and no
      JT_* variable: the budget must choose P > 1. At 100000 kb jasper_tpu's
      race100 results gate it: 278,399,246 records, threshold 5, QV 36.14758
      -> 76.81952, jfhisto25.csv equal to race_artifacts/race100_histo_tpu.txt;
-     and the probe and both K4 kernels launched, the scanner's table equals
+     and the probe, both K4 kernels, K3 and K2 launched, the scanner's table equals
      the host table, no step past the lane multiple. Reports P, G, the
      stage seconds, the resident lanes per pass, the device ms of the split
      flushes and merges (beside the all-torch ladder's) and the peak
@@ -105,7 +109,8 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      3's k=37 shape, with the same gates;
  12. after phase 8, race100's table pulled to the host once and its draft
      scanned by the partitioned scanner forced to 4 slices: counts, valid
-     and unsafe equal to the replicated scanner's bit for bit; the push
+     and unsafe equal to the replicated scanner's bit for bit, K3 launched
+     in the partitioned scan (its hash is inside K9); the push
      seconds and rate, the scan seconds against the replicated scan's and
      the peak device memory;
  13. the hash-sharded table, before phase 9's child starts: race20's table
@@ -191,10 +196,26 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      mesh of the card; build_table(owner_bits=2) on the card of race20's
      records of owner 0, every key looked up to its count by K1's
      owner-bits mode, equal to its plain twin. Gates: K4m and K4f launched
-     where the count merges (counts reset just before each count), K4f
-     on every count, K1's owner-bits count moved. Reports each count's
-     seconds, records, peak memory and K4 launches, the fold's seconds, and
-     K1's owner-bits ms, bound and share on 4 M of the one-owner keys.
+     where the count merges (counts reset just before each count), K4f,
+     K3 and K2 on every count, K3's fused partition filter on the forced
+     forward count and the P-pass filter, K1's owner-bits count moved.
+     Reports each count's seconds, records, peak memory and K4 launches,
+     the fold's seconds, and K1's owner-bits ms, bound and share on 4 M of
+     the one-owner keys;
+ 20. extraction (K3) and the table hash (K2), csrc/kmer.cu, after phase 5
+     and before phase 6: each against its plain twin on the same CUDA
+     tensors, bit for bit on every lane. K3 on race20's first 2^23 read
+     codes (the count's first chunk) and on seeded synthetic codes (N runs,
+     codes 4, 5 and 255) of k - 1, k, k + 15 and 2^23 + 7 codes, at k = 15,
+     16, 25, 32 and 37, canonical and forward, with and without the 16-lane
+     padding; its fused partition filter at (p, P) = (0, 1), (1, 4), (3, 4)
+     and (5, 16) on the race chunk; one 4 M-window scan tile of race20's
+     draft. K2 at 2^20, 2^25 and 2^26 lanes, W = 1, 2 and 3, int32 and
+     int64 words. Gates: every output equal to its twin, the launch counts
+     moved. Reports each case's ms, bound (tools/measure.py:bound: K3's
+     codes read and keys and valid written, the funnel-shift form's
+     operations; K2's words read and h written, ~8 operations a word + 10),
+     share and the twin's ms.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -1179,6 +1200,27 @@ def k4_launches(what: str, gate: bool = True) -> dict:
     return got
 
 
+def reset_k23() -> None:
+    """Zero the K2 and K3 launch counts (ops/hashing.py, ops/kmer.py)."""
+    from jasper_tpu_torch.ops import hashing, kmer
+
+    hashing.LAUNCHES = kmer.LAUNCHES = kmer.FILTER_LAUNCHES = 0
+
+
+def k23_launches(what: str, k2: bool = True, k3: bool = True,
+                 filtered: bool = False) -> dict:
+    """K2 and K3 launches since reset_k23() (K3's with the partition
+    filter fused apart); fails unless each one asked for ran."""
+    from jasper_tpu_torch.ops import hashing, kmer
+
+    got = {"k2_launches": hashing.LAUNCHES, "k3_launches": kmer.LAUNCHES,
+           "k3_filter_launches": kmer.FILTER_LAUNCHES}
+    need = [key for key, on in zip(got, (k2, k3, filtered)) if on]
+    if any(got[key] <= 0 for key in need):
+        raise AssertionError(f"{what}: the path did not run {need}: {got}")
+    return got
+
+
 def k4_device_ms(events: "EventLog", torch_ms: dict | None) -> dict:
     """This run's device ms of the ladder merges and the (split) stage
     flushes, beside the all-torch ladder's figures for the same path
@@ -1214,6 +1256,7 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     torch.cuda.reset_peak_memory_stats(device)
     probe.LAUNCHES = 0
     reset_k4()
+    reset_k23()
     t0 = time.perf_counter()
     with patched(event_wraps(events) + peaks.wraps()):
         res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
@@ -1221,6 +1264,7 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     wall = time.perf_counter() - t0
     launches = probe.LAUNCHES
     k4 = k4_launches("driver path")
+    k23 = k23_launches("driver path")
     peak = max(peaks.peak, torch.cuda.max_memory_allocated(device))
 
     stages = res["stages"]
@@ -1260,7 +1304,7 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
            "repaired_share": repaired_share(genome, polished, errors),
            "identical_to_genome": polished == genome,
            "resident_lanes_after_count": resident,
-           "probe_launches": launches, "k4": k4, "peak_device_bytes": peak,
+           "probe_launches": launches, "k4": k4, "k23": k23, "peak_device_bytes": peak,
            "wall_s": wall, "stage_seconds_since_previous": splits,
            "device_ms": device_ms, "k4_device_ms": k4_device_ms(events, torch_ms),
            "ingest": ingest_report(res["ingest"], stages, device_ms),
@@ -1380,6 +1424,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
 
         pulls.seconds = dict.fromkeys(pulls.seconds, 0.0)
         reset_k4()
+        reset_k23()
         os.environ.update(env)
         try:
             with patched(peaks.wraps() + pulls.wraps()):
@@ -1391,6 +1436,8 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
                 del os.environ[var]
         wall = time.perf_counter() - t0
         k4 = k4_launches(name, gate=False)
+        # the grouped passes extract through K3's fused partition filter
+        k23 = k23_launches(name, filtered="JT_COUNT_GROUPS" in env)
         msgs = [m for _, m in lines]
         if not any(m.startswith(line) for m in msgs):
             raise AssertionError(f"{name}: no '{line}' line: {msgs}")
@@ -1403,7 +1450,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
                                  "phase 6's scanner table")
         at = dict((m.split(" (")[0], t) for t, m in lines)
         counted = max(t for t, m in lines if "counted" in m or "counting done" in m)
-        row = {"branch": name, "env": env, **kw, "k4": k4,
+        row = {"branch": name, "env": env, **kw, "k4": k4, "k23": k23,
                "records": len(rkeys), "wall_s": wall, "counting_s": counted,
                **{f"{k_}_s": v for k_, v in pulls.seconds.items()},
                "host_table_s": at["count: host table built"] - min(
@@ -1672,7 +1719,9 @@ def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     part = PartitionedDeviceScanner(host, k, slices_budget(host.n_buckets, 4), device)
+    reset_k23()
     got = part.prepare_all(seqs, 5)["draft"]
+    k23 = k23_launches("race100 partitioned scan", k2=False)
     peak = torch.cuda.max_memory_allocated(device) - base
     if part.P != 4:
         raise AssertionError(f"race100 partitioned: P={part.P}")
@@ -1686,7 +1735,7 @@ def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25)
            "partitioned_s": part.seconds,
            "partitioned_scan_s": part.seconds - part.push_seconds,
            "replicated_s": rep.seconds, "peak_device_bytes_above_base": peak,
-           "card": card}
+           "k23": k23, "card": card}
     part.tab = None
     log("race100 partitioned " + json.dumps(out))
     return out
@@ -2552,6 +2601,7 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     torch.cuda.reset_peak_memory_stats(device)
     logs = []
     reset_k4()
+    reset_k23()
     t0 = time.perf_counter()
     host, rkeys, _rcounts, dev_tab = count_reads_to_host(
         [reads], k, device, hash_size_hint=max(os.path.getsize(reads) // 10, 1024),
@@ -2559,6 +2609,7 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     k4 = k4_launches("mesh count")
+    k23 = k23_launches("mesh count")
     peak = torch.cuda.max_memory_allocated(device) - base
     if records_gate is not None and len(rkeys) != records_gate:
         raise AssertionError(f"mesh count: {len(rkeys)} records != {records_gate}")
@@ -2575,7 +2626,7 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     k11.update(read_bases=n_bases, share_of_bound=k11["bound_ms"] / (wall * 1e3))
     out = {"mesh": mesh.shape, "devices": [str(d) for d in mesh.flat],
            "reads_bytes": os.path.getsize(reads), "records": int(len(rkeys)), "k11_bound": k11,
-           "count_s": wall, "phase6_count_s": count6_s, "k4": k4,
+           "count_s": wall, "phase6_count_s": count6_s, "k4": k4, "k23": k23,
            "peak_device_bytes_above_base": peak,
            "stages": [m for m in logs if m.startswith("count: ")], "card": card}
     del host, rkeys, _rcounts, dev_tab
@@ -2693,13 +2744,15 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
     hint = max(os.path.getsize(reads) // 10, 1024)
     calls, launches = {}, {"merge_launches": 0, "runs_launches": 0, "compact_launches": 0}
 
-    def count(name, paths, env=None, line=None, gate=True, peaks=None, **kw):
+    def count(name, paths, env=None, line=None, gate=True, peaks=None, filtered=False,
+              **kw):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
         logs: list = []
         os.environ.update(env or {})
         reset_k4()
+        reset_k23()
         t0 = time.perf_counter()
         try:
             with patched(peaks.wraps() if peaks is not None else []):
@@ -2711,13 +2764,14 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
                 del os.environ[var]
         wall = time.perf_counter() - t0
         k4 = k4_launches(f"phase 19 {name}", gate=gate)
+        k23 = k23_launches(f"phase 19 {name}", filtered=filtered)
         for key in launches:
             launches[key] += k4[key]
         if line is not None and not any(m.startswith(line) for m in logs):
             raise AssertionError(f"phase 19 {name}: no '{line}' line: {logs}")
         if len(res) != 3 + bool(kw.get("return_device_table")):
             raise AssertionError(f"phase 19 {name}: a {len(res)}-tuple")
-        calls[name] = {"records": int(len(res[1])), "seconds": wall, "k4": k4,
+        calls[name] = {"records": int(len(res[1])), "seconds": wall, "k4": k4, "k23": k23,
                        "peak_device_bytes_above_base": max(
                            torch.cuda.max_memory_allocated(device),
                            peaks.peak if peaks is not None else 0) - base,
@@ -2744,7 +2798,7 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
     _host, gkeys, gcounts = count(
         "forward, 4 partitions in 2 passes", [reads],
         env={"JT_COUNT_PARTITIONS": "4", "JT_COUNT_GROUPS": "2"},
-        line="count: pass 2/2 counted", canonical=False, hash_size_hint=hint)
+        line="count: pass 2/2 counted", canonical=False, hash_size_hint=hint, filtered=True)
     del _host
     if not (np.array_equal(gkeys, fkeys) and np.array_equal(gcounts, fcounts)):
         raise AssertionError("forced forward count != the classic forward count")
@@ -2787,7 +2841,8 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
              {"mesh": local_data_mesh(devices=[device] * 2)},
              "count: partition pass 2/2 counted")):
         _host, qkeys, qcounts = count(name, [qhead], env=env, line=line, gate=False,
-                                      min_qual_char=Q_CUT, hash_size_hint=qhint, **kw)
+                                      filtered=bool(env), min_qual_char=Q_CUT,
+                                      hash_size_hint=qhint, **kw)
         got = _packed_records(qkeys)
         order = np.argsort(got)
         if not (np.array_equal(got[order], uniq) and np.array_equal(qcounts[order], cnt)):
@@ -2832,6 +2887,267 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
     del run, tab, keys, valid, got
     torch.cuda.empty_cache()
     return {**out, "_owner_row": probe_row, "_owner_launches": owner_launches}
+
+
+# -- phase 20: K3 and K2 against their plain twins ----------------------------
+
+K3_KS = (15, 16, 25, 32, 37)  # W = 1, 1, 2, 2, 3
+K3_PARTITIONS = ((0, 1), (1, 4), (3, 4), (5, 16))
+K3_CHUNK = 1 << 23  # count_reads' chunk of codes
+K2_LANES = (1 << 20, 1 << 25, 1 << 26)  # 2^25: race100's split flush, 2^26: race20's
+FLUSH_CHUNKS = 8  # race20's stage: 8 chunks of 2^23 codes
+EXTRACT_DESIGN = ("a block of 256 threads takes 256 consecutive windows and stages their "
+                  "256 + k - 1 codes in shared memory, coalesced; a thread packs its "
+                  "window's k codes directly (validity from the same reads), takes the "
+                  "reverse complement by a two-bit-group reversal of the complemented "
+                  "key and keeps the smaller; the partition filter hashes the key in "
+                  "registers (hash.cuh); a row's W words stored adjacent, 16 B vectors "
+                  "at W = 2 and 4")
+HASH_DESIGN = ("a thread a lane: its W words read as int64 (low 32 bits) or int32 bits, "
+               "hash.cuh's mix32 in registers, one int64 stored")
+
+
+def k3_ops(W: int, canonical: bool, filtered: bool) -> int:
+    """int32 operations a window takes in the funnel-shift form
+    (ops/kmer.py:_windows_plain), which bound_ms charges: per packed stream
+    (the forward one, and the reverse complement's when canonical) 2 a
+    code to pack it and 3 a key word to cut it (two shifts and an or); 4 a
+    word to compare and select the smaller; 2 for the validity; with the
+    filter, the hash (8 a word + 10) and its compare (2)."""
+    streams = 2 if canonical else 1
+    return (streams * (2 + 3 * W) + (4 * W if canonical else 0) + 2
+            + (8 * W + 12 if filtered else 0))
+
+
+def _max_abs_err(got, want) -> int:
+    """The largest |got - want| over the tensors' lanes (0: bit for bit)."""
+    import torch
+
+    return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+               if a.numel() else 0 for a, b in zip(got, want))
+
+
+def k3_case(codes, k: int, canonical: bool, pad16: bool, partition, what: str,
+            iters: int = 5) -> dict:
+    """K3 (windows_cuda) against its plain twin (windows_plain) on the same
+    CUDA codes, keys and valid bit for bit on every lane; the kernel's and
+    the twin's ms (CUDA events), the bound (codes read once, keys and valid
+    written once; k3_ops a window) and the share."""
+    import torch
+
+    from jasper_tpu_torch.ops import kmer
+
+    args = (codes, k, canonical)
+    kw = {"pad16": pad16, "partition": partition}
+    got = kmer.windows_cuda(*args, **kw)
+    want = kmer.windows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if got[0].shape != want[0].shape or got[1].shape != want[1].shape:
+        raise AssertionError(f"K3 {what}: shapes {tuple(got[0].shape)} != "
+                             f"{tuple(want[0].shape)}")
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"K3 {what}: keys or valid != the plain twin")
+    n_out, W = got[0].shape
+    filtered = partition is not None and partition[1] > 1
+    row = {"case": what, "k": k, "canonical": canonical, "pad16": pad16,
+           "partition": partition, "codes": int(codes.shape[0]), "lanes": int(n_out),
+           "valid": int(got[1].sum()), "max_abs_err": _max_abs_err(got, want),
+           "ms": cuda_ms(lambda: kmer.windows_cuda(*args, **kw), iters),
+           "plain_ms": cuda_ms(lambda: kmer.windows_plain(*args, **kw), iters),
+           **bound(codes.shape[0] + n_out * (8 * W + 1),
+                   max(codes.shape[0] - k + 1, 0) * k3_ops(W, canonical, filtered))}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"] if row["ms"] else None
+    return row
+
+
+def k2_case(words, what: str, iters: int = 5) -> dict:
+    """K2 (mix32_cuda) against its plain twin (mix32_plain) on the same
+    CUDA words, bit for bit; ms, twin ms, bound (the words read once, h
+    written once; ~8 int32 ops a word + 10) and share."""
+    import torch
+
+    from jasper_tpu_torch.ops import hashing
+
+    got, want = hashing.mix32_cuda(words), hashing.mix32_plain(words)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K2 {what}: h != the plain twin")
+    B, W = words.shape
+    row = {"case": what, "lanes": int(B), "W": int(W), "dtype": str(words.dtype),
+           "max_abs_err": _max_abs_err([got], [want]),
+           "ms": cuda_ms(lambda: hashing.mix32_cuda(words), iters),
+           "plain_ms": cuda_ms(lambda: hashing.mix32_plain(words), iters),
+           **bound(B * (W * words.element_size() + 8), B * (8 * W + 10))}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def synthetic_codes(rng, L: int, device):
+    """Seeded codes 0..3 with N runs and scattered codes 4, 5 and 255 (the
+    scan's padding code) on the card."""
+    import torch
+
+    codes = rng.integers(0, 4, size=L).astype(np.uint8)
+    if L >= 12:
+        for at in rng.integers(0, L - 7, size=max(1, L >> 16)):
+            codes[at : at + 7] = 4
+        for c in (4, 5, 255):
+            codes[rng.integers(0, L, size=max(2, L >> 18))] = c
+    return torch.from_numpy(codes).to(device)
+
+
+def flush_with_each_hash(stage, device) -> dict:
+    """A stage flush (sorted_runs.flush_stage) of the staged windows
+    ``stage`` ((keys, valid) chunks) with its hash as K2 and as the torch
+    ops of mix32_plain, in turns: each one's device ms (CUDA events) and
+    peak device memory above what was allocated before it; the two runs
+    equal."""
+    import torch
+
+    from jasper_tpu_torch.count import sorted_runs as sr
+    from jasper_tpu_torch.ops import hashing
+
+    keys, valid = [kp for kp, _ in stage], [vp for _, vp in stage]
+    res, runs = {}, {}
+    for name, fn in (("k2", sr.mix32), ("mix32_plain", hashing.mix32_plain),
+                     ("mix32_plain again", hashing.mix32_plain), ("k2 again", sr.mix32)):
+        with patched([(sr, "mix32", lambda _f, fn=fn: fn)]):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            run = sr.flush_stage(keys, valid)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) - base
+            n = int(run[3])
+            runs[name.split()[0]] = [t[:n] for t in run[:3]]
+            del run
+            res[name] = {"ms": cuda_ms(lambda: sr.flush_stage(keys, valid), 3),
+                         "peak_bytes_above_base": peak}
+    if not all(torch.equal(a, b) for a, b in zip(runs["k2"], runs["mix32_plain"])):
+        raise AssertionError("the flush with K2 != the flush with mix32_plain")
+    res["lanes"] = sum(int(kp.shape[0]) for kp in keys)
+    return res
+
+
+def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
+    """Phase 20: K3 (windows_cuda) and K2 (mix32_cuda) against their plain
+    twins on the same CUDA tensors, bit for bit on every lane: K3 on
+    race20's first 2^23 codes (count_reads' first chunk) and on seeded
+    synthetic codes (N runs, codes 4, 5 and 255) of k - 1, k, k + 15 and
+    2^23 + 7 codes, at k = 15, 16, 25, 32, 37, canonical and forward, with
+    and without the 16-lane padding; its partition filter at (p, P) =
+    (0, 1), (1, 4), (3, 4), (5, 16) on the race chunk, canonical padded and
+    forward; one 4 M-window scan tile of race20's draft; K2 at 2^20, 2^25
+    and 2^26 lanes, W = 1, 2, 3, int32 and int64 words. Gates: every
+    output equal to its twin, the launch counts moved. Reports each case's
+    ms, bound, share and the twin's ms; and race20's first stage flushed
+    with K2 and with the torch hash in turns (flush_with_each_hash)."""
+    import torch
+
+    from jasper_tpu_torch.count.sorted_runs import extract_windows
+    from jasper_tpu_torch.io.fastx import stream_codes
+    from jasper_tpu_torch.ops import hashing, kmer
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+    chunks = stream_codes([reads], 25, K3_CHUNK)
+    race_chunk = torch.from_numpy(next(chunks)[0]).to(device)
+    # race20's first stage (8 chunks, 2^26 windows) flushed with each hash
+    stage = [extract_windows(race_chunk, 25)]
+    for codes, _fill in chunks:
+        stage.append(extract_windows(torch.from_numpy(codes).to(device), 25))
+        if len(stage) == FLUSH_CHUNKS:
+            break
+    chunks.close()
+    flush = flush_with_each_hash(stage, device)
+    del stage
+    draft = read_fasta_one(asm)
+    before = (kmer.LAUNCHES, kmer.FILTER_LAUNCHES, hashing.LAUNCHES)
+    k3 = []
+    for k in K3_KS:
+        inputs = [("race20 chunk", race_chunk)] + [
+            (f"synthetic {L}", synthetic_codes(rng, L, device))
+            for L in (k - 1, k, k + 15, K3_CHUNK + 7)]
+        for what, codes in inputs:
+            for canonical in (True, False):
+                for pad16 in (False, True):
+                    k3.append(k3_case(codes, k, canonical, pad16, None, what))
+    for p, P in K3_PARTITIONS:
+        for canonical in (True, False):
+            k3.append(k3_case(race_chunk, 25, canonical, canonical, (p, P), "race20 chunk"))
+    k3.append(k3_case(draft_tile(draft, device), 25, True, False, None,
+                      "race20 draft scan tile"))
+    k2 = []
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    for B in K2_LANES:
+        for W in (1, 2, 3):
+            words = torch.randint(0, 1 << 32, (B, W), generator=g, device=device,
+                                  dtype=torch.int64)
+            k2.append(k2_case(words, f"{B} lanes int64"))
+            k2.append(k2_case(torch.where(words >= 1 << 31, words - (1 << 32), words)
+                              .to(torch.int32), f"{B} lanes int32"))
+            del words
+    moved = {"k3_launches": kmer.LAUNCHES - before[0],
+             "k3_filter_launches": kmer.FILTER_LAUNCHES - before[1],
+             "k2_launches": hashing.LAUNCHES - before[2]}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"phase 20: a launch count did not move: {moved}")
+
+    def pick(rows, **want):
+        return next(r for r in rows if all(r[key] == v for key, v in want.items()))
+
+    # the count's chunk (canonical, padded) and race20's flush (2^26 lanes,
+    # W = 2): the kernels line's rows
+    k3_main = pick(k3, case="race20 chunk", k=25, canonical=True, pad16=True, partition=None)
+    # the wrapper's host time a call (checks, outputs, launch; no
+    # synchronise): what a CUDA event span around a call on an idle card
+    # adds to the kernel's time
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        kmer.windows_cuda(race_chunk, 25, True, pad16=True)
+    k3_main["wrapper_host_ms"] = (time.perf_counter() - t1) * 1e3 / 20
+    torch.cuda.synchronize()
+    k2_main = pick(k2, lanes=K2_LANES[2], W=2, dtype="torch.int64")
+    # every case in one short row: its inputs, ms, the twin's ms, bound, share
+    k3_cols = ("case", "k", "canonical", "pad16", "partition", "lanes", "ms", "plain_ms",
+               "bound_ms", "share_of_bound")
+    k2_cols = ("lanes", "W", "dtype", "ms", "plain_ms", "bound_ms", "share_of_bound")
+    out = {"k3_cases": len(k3), "k2_cases": len(k2), "launches_in_comparison": moved,
+           "k3_max_abs_err": max(r["max_abs_err"] for r in k3),
+           "k2_max_abs_err": max(r["max_abs_err"] for r in k2),
+           "k3_count_chunk": k3_main,
+           "k3_scan_tile": pick(k3, case="race20 draft scan tile"),
+           "k2_race20_flush": k2_main,
+           "k2_race100_flush": pick(k2, lanes=K2_LANES[1], W=2, dtype="torch.int64"),
+           "stage_flush_by_hash": flush,
+           "k3_columns": k3_cols, "k3": [[r[c] for c in k3_cols] for r in k3],
+           "k2_columns": k2_cols, "k2": [[r[c] for c in k2_cols] for r in k2],
+           "seconds": time.perf_counter() - t0, "card": card}
+    log("phase 20 " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return {**out, "_k3_main": k3_main, "_k2_main": k2_main}
+
+
+def k23_rows(kmer_phase: dict, drivers: list) -> list[dict]:
+    """The kernels line's K3 and K2 rows: phase 20's main shapes (the
+    count's chunk; race20's flush), the launches of the driver paths."""
+    k3, k2 = kmer_phase["_k3_main"], kmer_phase["_k2_main"]
+    rows = []
+    for name, replaces, main, err, key, design in (
+            ("window_extraction", "jasper_tpu/ops/kmer.py:118", k3,
+             kmer_phase["k3_max_abs_err"], "k3_launches", EXTRACT_DESIGN),
+            ("mix32", "jasper_tpu/ops/hashing.py:28", k2,
+             kmer_phase["k2_max_abs_err"], "k2_launches", HASH_DESIGN)):
+        rows.append({"name": name, "route": "cuda", "source": "jasper_tpu_torch/csrc/kmer.cu",
+                     "replaces": replaces,
+                     "launches": sum(d["k23"][key] for d in drivers),
+                     "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                     "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                     "library_ms": None,  # no single PyTorch call computes it
+                     "design": design})
+    return rows
 
 
 TWO_PROCESS = """
@@ -3003,6 +3319,7 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
     wd = os.path.join(os.path.dirname(reads), "run37")
     probe.LAUNCHES = 0
     reset_k4()
+    reset_k23()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
@@ -3010,6 +3327,7 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
     wall = time.perf_counter() - t0
     launches = probe.LAUNCHES
     k4 = k4_launches("k=37 driver path", gate=False)
+    k23 = k23_launches("k=37 driver path")
     peak = torch.cuda.max_memory_allocated(device)
     if launches <= 0:
         raise AssertionError("the k=37 driver path never launched the probe kernel")
@@ -3055,7 +3373,7 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
     out = {"k": k, "genome_bp": len(genome), "reads_bytes": os.path.getsize(reads),
            "records": int(len(keys)), "threshold": thr, "q_before": res["q_before"],
            "q_after": res["q_after"], "probe_launches": launches, "k4": k4,
-           "batches": len(batches),
+           "k23": k23, "batches": len(batches),
            "repaired_share": repaired_share(genome, polished, errors),
            "wall_s": wall, "oracle_s": oracle_s, "host_walk_s": host_s,
            "peak_device_bytes": peak, "card": card}
@@ -3073,7 +3391,7 @@ def main(argv=None) -> int:
                          "records, threshold and QV hold at 20000 only)")
     ap.add_argument("--big-kb", type=int, default=BIG_KB,
                     help="phase 8: genome length in kb (gated at 100000 only)")
-    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
+    ap.add_argument("--phases", default="3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
                     help="phases to run after 1-2, comma-separated (7, 9, 10, 11, "
                          "13, 14 and 19 need 6, 12 needs 8)")
     ap.add_argument("--seed", type=int, default=7)
@@ -3090,8 +3408,8 @@ def main(argv=None) -> int:
         ap.error("phases 7, 9, 10, 11, 13, 14 and 19 hold their results against phase 6's")
     if 12 in phases and 8 not in phases:
         ap.error("phase 12 scans phase 8's table")
-    if not phases & {6, 8, 18}:
-        ap.error("the kernels line needs a driver path (phase 6 or 8) or phase 18")
+    if not phases & {6, 8, 18, 20}:
+        ap.error("the kernels line needs a driver path (phase 6 or 8), phase 18 or 20")
 
     import torch
 
@@ -3129,7 +3447,7 @@ def main(argv=None) -> int:
     # no more disk than phase 8's own run takes.
     children: list = []  # every process started here, stopped on the way out
     race = start_race_data(workdir, "race", args.race_kb, args.seed) \
-        if phases & {5, 6} else None
+        if phases & {5, 6, 20} else None
     big = start_race_data(workdir, "race100", args.big_kb, args.seed) if 8 in phases else None
     race37 = start_race_data(workdir, "race37", F5_KB, args.seed) \
         if phases & {15, 16} else None
@@ -3202,7 +3520,10 @@ def main(argv=None) -> int:
     if "runs" in more:
         kernels["kernels"] += k4_rows(more["runs"], drivers + (
             [surface] if surface is not None else []))
+    if "kmer" in more:
+        kernels["kernels"] += k23_rows(more["kmer"], drivers)
     log(f"K4 launches per driver path {[d['k4'] for d in drivers]}")
+    log(f"K2 and K3 launches per driver path {[d['k23'] for d in drivers]}")
     log(f"probe launches per driver path {[d['probe_launches'] for d in drivers]}; "
         f"worst lane multiple per driver path "
         f"{[d['count_peak_memory']['worst_lane_multiple'] for d in drivers]} "
@@ -3233,16 +3554,17 @@ def run_race37(phases, race37, device, card: str, children) -> dict:
 
 def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
                children):
-    """Phases 3-17; ``race``, ``big`` and ``race37`` wait for race20's,
+    """Phases 3-20; ``race``, ``big`` and ``race37`` wait for race20's,
     race100's and phase 16's data. Phase 9 runs in a child process beside
     phases 7, 10, 15 and 16 (its routes are host-bound); it is appended to
     ``children``, and so are phase 15's two processes. Phases 11, 13 and 14
     and the ranged kernel at the main path's shape run before it starts.
-    Phase 17 runs after phase 4, while the race data are still being made.
-    Returns the driver paths' reports, the main-shape probe rows, phase 3's
-    rows, the ranged kernel's comparisons (phase 3's, then the one at the
-    main path's shape) with phase 10's ranged launches, and the reports of
-    phases 13 ("sharded"), 16 ("k37", a list) and 17 ("tools")."""
+    Phase 17 runs after phase 4, while the race data are still being made,
+    phase 20 after phase 5. Returns the driver paths' reports, the
+    main-shape probe rows, phase 3's rows, the ranged kernel's comparisons
+    (phase 3's, then the one at the main path's shape) with phase 10's
+    ranged launches, and the reports of phases 13 ("sharded"), 16 ("k37",
+    a list), 17 ("tools"), 18 ("runs"), 19 ("surface") and 20 ("kmer")."""
     import torch
 
     rng = np.random.default_rng(args.seed)
@@ -3260,6 +3582,8 @@ def run_phases(args, phases, device, card: str, workdir: str, race, big, race37,
         asm, reads, genome, errors = race()
         if 5 in phases:
             phase_count(reads, device, card)
+        if 20 in phases:  # before phase 9's child shares the card
+            more["kmer"] = phase_kmer(reads, asm, device, card, args.seed)
         if 6 in phases:
             full = args.race_kb == RACE_KB
             drv = phase_driver(asm, reads, genome, errors, device, card, gates={

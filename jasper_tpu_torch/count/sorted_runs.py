@@ -36,8 +36,11 @@ raises (there is no fallback):
     ``compact_run`` (twin ``_compact``), the stable partition of the
     actives of a run whose counts are given.
 
-The windows' sort stays torch.sort (``_lexsort``), as jasper_tpu's stays
-``lax.sort``.
+The windows come from K3 (``extract_windows``: ops/kmer.py's
+``windows_cuda`` on the card, the padding and the partition filter fused)
+and their hashes from K2 (``mix32``: ops/hashing.py's ``mix32_cuda`` on the
+card), hand kernels of csrc/kmer.cu under the same rule. The windows' sort
+stays torch.sort (``_lexsort``), as jasper_tpu's stays ``lax.sort``.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ import numpy as np
 import torch
 
 from jasper_tpu_torch.ops.hashing import M32, mix32
-from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows
+from jasper_tpu_torch.ops.kmer import windows_cuda, windows_plain
 
 U32_MAX = M32
 _HALF = 1 << 31
@@ -479,24 +482,12 @@ def extract_windows(codes, k: int, canonical: bool = True, partition=None):
     and so does this one.
 
     partition=(p, P), P a power of two, keeps only the windows whose mix32
-    hash falls in the p-th of P equal top-bit ranges."""
-    if not canonical:
-        keys, valid = forward_windows(codes, k)
-    else:
-        keys, valid = canonical_windows_fast(codes, k)
-        pad = -keys.shape[0] % 16
-        if pad:
-            keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
-            valid = torch.cat([valid, valid.new_zeros(pad)])
-    if partition is not None:
-        p, P = partition
-        if P < 1 or P & (P - 1) or not 0 <= p < P:
-            raise ValueError(f"partition {partition}: P must be a power of "
-                             "two and 0 <= p < P")
-        if P > 1:
-            bits = P.bit_length() - 1
-            valid = valid & ((mix32(keys) >> (32 - bits)) == p)
-    return keys, valid
+    hash falls in the p-th of P equal top-bit ranges.
+
+    A CPU chunk takes K3's plain twin (ops/kmer.py:windows_plain); a CUDA
+    chunk K3 (windows_cuda) once, the padding and the filter fused."""
+    fn = windows_plain if codes.device.type == "cpu" else windows_cuda
+    return fn(codes, k, canonical, pad16=canonical, partition=partition)
 
 
 def _chunk_windows(codes, k: int, canonical: bool):

@@ -5,7 +5,13 @@ torch has no usable uint32 arithmetic (shift, add, compare and ``where``
 raise on it), so every value here is an int64 holding a uint32 in
 [0, 2^32). Products are formed from 16-bit halves of the constant so no
 int64 product overflows, and every left shift is masked back to 32 bits.
-The CUDA probe (csrc/probe.cu) computes the same hash in native uint32.
+
+``mix32`` (K2) follows table/probe.py's rule: a CPU tensor takes the plain
+twin ``mix32_plain``; a CUDA tensor launches csrc/kmer.cu's ``jt_mix32``
+(``mix32_cuda``), which computes the same bits in native uint32 with
+csrc/hash.cuh's mix32, the device function the probe (K1) and the run
+totals (K4f) share, or raises: there is no fallback. Plain twins elsewhere
+call ``mix32_plain`` by name, so that they stay independent of the kernel.
 
 The host helpers at the end (hash_words_np, home_of_np, home_of_int) are
 the numpy and int forms the host table's insert and scalar probe use
@@ -22,6 +28,10 @@ _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
 _SEED = 0x6A737072  # "jspr"
 
+# K2 kernel launches since the last reset (the main-path proof in
+# chip_smoke.py)
+LAUNCHES = 0
+
 
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for int64 a in [0, 2^32) and a 32-bit constant c,
@@ -35,9 +45,10 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & M32) | (x >> (32 - r))
 
 
-def mix32(words: torch.Tensor) -> torch.Tensor:
+def mix32_plain(words: torch.Tensor) -> torch.Tensor:
     """murmur3-32 body + fmix over key words [..., W] (any integer dtype,
-    int32 bit patterns included) -> int64 [...] in [0, 2^32)."""
+    int32 bit patterns included) -> int64 [...] in [0, 2^32). The plain
+    twin of K2."""
     words = words.to(torch.int64) & M32
     W = words.shape[-1]
     h = torch.full(words.shape[:-1], _SEED, dtype=torch.int64,
@@ -56,6 +67,47 @@ def mix32(words: torch.Tensor) -> torch.Tensor:
     h = mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     return h
+
+
+def mix32_cuda(words: torch.Tensor) -> torch.Tensor:
+    """Launch K2 (csrc/kmer.cu:jt_mix32) on the current stream (no
+    synchronise): words int64 (values' low 32 bits) or int32 (bit
+    patterns) [..., W], 1 <= W <= 4, contiguous, on a CUDA device ->
+    int64 [...] in [0, 2^32)."""
+    global LAUNCHES
+    if words.device.type != "cuda":
+        raise ValueError(f"mix32_cuda: words are on {words.device}, not a CUDA device")
+    if words.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"mix32_cuda: words must be int64 or int32, got {words.dtype}")
+    if not words.is_contiguous():
+        raise ValueError("mix32_cuda: words are not contiguous")
+    if words.dim() < 1 or not 1 <= words.shape[-1] <= 4:
+        raise ValueError(f"mix32_cuda: want words [..., W<=4], got {tuple(words.shape)}")
+    from jasper_tpu_torch.table import _build
+
+    lib = _build.load()
+    W = int(words.shape[-1])
+    out = torch.empty(words.shape[:-1], dtype=torch.int64, device=words.device)
+    B = out.numel()
+    if B == 0:
+        return out
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = lib.jt_mix32(words.data_ptr(), B, W, int(words.dtype == torch.int32),
+                      out.data_ptr(), words.device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError("jt_mix32 launch failed: " + lib.jt_cuda_error_string(rc).decode())
+    LAUNCHES += 1
+    return out
+
+
+def mix32(words: torch.Tensor) -> torch.Tensor:
+    """murmur3-32 body + fmix over key words [..., W] -> int64 [...] in
+    [0, 2^32). CPU tensors (any integer dtype) -> mix32_plain; else K2
+    (int64 or int32 words, W <= 4), on a contiguous copy where the words
+    are a strided view."""
+    if words.device.type == "cpu":
+        return mix32_plain(words)
+    return mix32_cuda(words.contiguous())
 
 
 def home_of(h: torch.Tensor, n_buckets: int, owner_bits: int = 0) -> torch.Tensor:

@@ -14,6 +14,14 @@ forward_windows gives the forward keys alone (counting without -C). Both
 also serve the host (on CPU tensors) where jasper_tpu runs its numpy
 window stack: the filtered count's dedupe and the host table's queries.
 
+Both go through ``_windows`` (K3), which follows table/probe.py's rule: a
+CPU tensor takes the plain twin ``_windows_plain`` (the construction
+above); a CUDA tensor launches csrc/kmer.cu's ``jt_windows``
+(``windows_cuda``), which gives the same keys and valid flags bit for bit
+on every lane, or raises: there is no fallback. ``windows_cuda`` also
+takes count/sorted_runs.py:extract_windows' padding to 16 lanes and its
+hash-partition filter, fused.
+
 pack_codes, window_stack, canonical_windows and canonical_kmers_of_batch
 are jasper_tpu's slow reference forms (jasper_tpu/ops/kmer.py:42-89,213-222):
 k window columns packed base by base, O(k) memory passes. They give
@@ -31,7 +39,12 @@ import numpy as np
 import torch
 
 from jasper_tpu_torch.ops.codes import CODE_T
-from jasper_tpu_torch.ops.hashing import M32
+from jasper_tpu_torch.ops.hashing import M32, mix32_plain
+
+# K3 kernel launches since the last reset (the main-path proof in
+# chip_smoke.py): every launch, and those that fused a partition filter
+LAUNCHES = 0
+FILTER_LAUNCHES = 0
 
 
 def words_per_kmer(k: int) -> int:
@@ -136,7 +149,10 @@ def _funnel(P: torch.Tensor, start: torch.Tensor, W: int, top_mask: int):
     return torch.stack(words, dim=-1)
 
 
-def _windows(codes: torch.Tensor, k: int, canonical: bool):
+def _windows_plain(codes: torch.Tensor, k: int, canonical: bool):
+    """The plain twin of K3: (keys int64 [L-k+1, W], valid bool [L-k+1])
+    by the funnel shift over packed 2-bit streams, validity from a cumsum
+    of the bad bases."""
     L = int(codes.shape[0])
     n = L - k + 1
     W = words_per_kmer(k)
@@ -161,6 +177,84 @@ def _windows(codes: torch.Tensor, k: int, canonical: bool):
     cs[1:] = torch.cumsum(bad, dim=0)
     valid = (cs[k : n + k] - cs[:n]) == 0
     return keys, valid
+
+
+def partition_bits(partition) -> tuple[int, int]:
+    """A hash partition (p, P), P a power of two and 0 <= p < P, -> (the
+    top-bit count log2 P, p); raises on any other (p, P)."""
+    p, P = partition
+    if P < 1 or P & (P - 1) or not 0 <= p < P:
+        raise ValueError(f"partition {partition}: P must be a power of "
+                         "two and 0 <= p < P")
+    return P.bit_length() - 1, p
+
+
+def windows_plain(codes: torch.Tensor, k: int, canonical: bool, pad16: bool = False,
+                  partition=None):
+    """The plain twin of windows_cuda, on any device: _windows_plain, then
+    with ``pad16`` zero, invalid lanes to 16 * ceil(n / 16), and with a
+    ``partition`` (p, P) the valid flags of the windows whose mix32_plain
+    hash is outside the p-th of P top-bit ranges cleared."""
+    bits, p = partition_bits(partition) if partition is not None else (0, 0)
+    keys, valid = _windows_plain(codes, k, canonical)
+    pad = -keys.shape[0] % 16 if pad16 else 0
+    if pad:
+        keys = torch.cat([keys, keys.new_zeros((pad, keys.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    if bits:
+        valid = valid & ((mix32_plain(keys) >> (32 - bits)) == p)
+    return keys, valid
+
+
+def windows_cuda(codes: torch.Tensor, k: int, canonical: bool, pad16: bool = False,
+                 partition=None):
+    """Launch K3 (csrc/kmer.cu:jt_windows) on the current stream (no
+    synchronise): codes uint8 [L], contiguous, on a CUDA device -> (keys
+    int64 [n_out, W], valid bool [n_out]), positional order, canonical or
+    forward keys as _windows_plain gives them. n_out = L-k+1 (0 when L <
+    k), or with ``pad16`` 16 * ceil(n / 16), the pad lanes zero and
+    invalid. ``partition`` = (p, P) also clears the valid flag of every
+    window whose mix32 hash is outside the p-th of P top-bit ranges."""
+    global LAUNCHES, FILTER_LAUNCHES
+    bits, p = partition_bits(partition) if partition is not None else (0, 0)
+    if codes.device.type != "cuda":
+        raise ValueError(f"windows_cuda: codes are on {codes.device}, not a CUDA device")
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise ValueError(f"windows_cuda: codes must be uint8 [L], got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    if not codes.is_contiguous():
+        raise ValueError("windows_cuda: codes are not contiguous")
+    if not 1 <= k <= 64:
+        raise ValueError(f"windows_cuda: k = {k} not in [1, 64]")
+    from jasper_tpu_torch.table import _build
+
+    lib = _build.load()
+    L, W = int(codes.shape[0]), words_per_kmer(k)
+    n = max(L - k + 1, 0)
+    n_out = -(-n // 16) * 16 if pad16 else n
+    keys = torch.empty((n_out, W), dtype=torch.int64, device=codes.device)
+    valid = torch.empty(n_out, dtype=torch.bool, device=codes.device)
+    if n_out == 0:
+        return keys, valid
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = lib.jt_windows(codes.data_ptr(), L, k, int(canonical), int(pad16), bits, p,
+                        keys.data_ptr(), valid.data_ptr(), codes.device.index or 0,
+                        stream)
+    if rc != 0:
+        raise RuntimeError("jt_windows launch failed: "
+                           + lib.jt_cuda_error_string(rc).decode())
+    LAUNCHES += 1
+    if bits:
+        FILTER_LAUNCHES += 1
+    return keys, valid
+
+
+def _windows(codes: torch.Tensor, k: int, canonical: bool):
+    """CPU tensors -> _windows_plain; else K3 (uint8 codes), on a
+    contiguous copy where the codes are a strided view."""
+    if codes.device.type == "cpu":
+        return _windows_plain(codes, k, canonical)
+    return windows_cuda(codes.contiguous(), k, canonical)
 
 
 def canonical_windows_fast(codes: torch.Tensor, k: int):

@@ -2,8 +2,9 @@
 
 The sources compile at first use into ``jasper_tpu_torch/build/``, one shared
 library per hash of the sources and flags, with a plain C interface (no
-PyTorch headers: a build takes seconds, not minutes). A missing nvcc or a
-failed build raises; nothing falls back.
+PyTorch headers: a build takes seconds, not minutes). Each source compiles
+in its own nvcc process, all started together, and one more links them.
+A missing nvcc or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -60,6 +61,46 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libjt_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; raises naming the first that failed
+    -> what they printed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs, failed = [], None
+    for cmd, proc in zip(cmds, procs):
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, out)
+    if failed is not None:
+        raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{failed[1]}")
+    return "".join(logs)
+
+
+def _compile_and_link(so: str) -> str:
+    """Compile every source to an object in its own nvcc process, the
+    processes started together, then link them into ``so`` -> the build's
+    output (ptxas's register and spill report)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{so}.{os.getpid()}"
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    try:
+        log = _run_all([[nvcc, *flags, "-c", "-o", obj, src]
+                        for src, obj in zip(_sources(), objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-o", f"{tag}.tmp", *objs]])
+        os.replace(f"{tag}.tmp", so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return log
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
     global _lib, build_log, build_seconds
@@ -70,16 +111,9 @@ def load() -> ctypes.CDLL:
             return _lib
         so = library_path()
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+            build_log = _compile_and_link(so)
             build_seconds = time.perf_counter() - t0
-            build_log = r.stdout + r.stderr
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{build_log}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         lib.jt_probe_lookup.restype = ctypes.c_int
         lib.jt_probe_lookup.argtypes = [
@@ -96,6 +130,7 @@ def load() -> ctypes.CDLL:
         lib.jt_cuda_error_string.restype = ctypes.c_char_p
         lib.jt_cuda_error_string.argtypes = [ctypes.c_int]
         bind_runs(lib)
+        bind_kmer(lib)
         _lib = lib
         return _lib
 
@@ -116,3 +151,15 @@ def bind_runs(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.restype = i32
         fn.argtypes = args + [p, i32, p]
+
+
+def bind_kmer(lib: ctypes.CDLL) -> None:
+    """Argument types of csrc/kmer.cu's entries: K3's ``jt_windows``
+    (codes, L, k, canonical, pad16, part_bits, part_p, the key and valid
+    outputs) and K2's ``jt_mix32`` (words, B, W, in_is_int32, the hash
+    output), each then the device and the stream."""
+    p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+    lib.jt_windows.restype = i32
+    lib.jt_windows.argtypes = [p, i64, i32, i32, i32, i32, u32, p, p, i32, p]
+    lib.jt_mix32.restype = i32
+    lib.jt_mix32.argtypes = [p, i64, i32, i32, p, i32, p]

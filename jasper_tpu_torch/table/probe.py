@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from jasper_tpu_torch.ops.hashing import M32, home_of, mix32
+from jasper_tpu_torch.ops.hashing import M32, home_of, mix32_plain
 from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32, slot_words_for
 
 # kernel launches since the last reset (the main-path proof in
@@ -96,7 +96,7 @@ def lookup_kmers_plain(tab, keys, valid, owner_bits: int = 0):
     """Plain torch twin of the kernel: kmer_table.lookup_kmers semantics."""
     _check_plain(tab, keys, "lookup_kmers_plain")
     n_buckets, _W, _S = _layout(tab, keys)
-    home = home_of(mix32(keys), n_buckets, _check_owner_bits(owner_bits))
+    home = home_of(mix32_plain(keys), n_buckets, _check_owner_bits(owner_bits))
     return _probe_chain_plain(tab, keys, valid, home)
 
 
@@ -110,7 +110,7 @@ def lookup_kmers_ranged_plain(tab, keys, valid, n_buckets_global: int,
     uint32, so the range compares are unsigned in meaning."""
     _check_plain(tab, keys, "lookup_kmers_ranged_plain")
     n_local, _W, _S = _layout(tab, keys)
-    hg = home_of(mix32(keys), int(n_buckets_global), _check_owner_bits(owner_bits))
+    hg = home_of(mix32_plain(keys), int(n_buckets_global), _check_owner_bits(owner_bits))
     base = int(home_base)
     in_range = (hg >= base) & (hg < base + n_local)
     home = torch.where(in_range, hg - base, 0)
