@@ -5,6 +5,7 @@
                           [--phases 3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20]
                           [--seed 7]
                           [--workdir DIR] [--ab-probe OTHER_probe.cu]
+                          [--ab-kmer OTHER_kmer.cu,...]
 
 Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions, nvcc;
@@ -206,8 +207,11 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      and before phase 6: each against its plain twin on the same CUDA
      tensors, bit for bit on every lane. K3 on race20's first 2^23 read
      codes (the count's first chunk) and on seeded synthetic codes (N runs,
-     codes 4, 5 and 255) of k - 1, k, k + 15 and 2^23 + 7 codes, at k = 15,
-     16, 25, 32 and 37, canonical and forward, with and without the 16-lane
+     codes 4, 5 and 255) of k - 1, k, k + 15 and 2^23 + 7 codes, of lengths
+     about K3's tile borders (T + k - 2, T + k - 1, T + k, 2T + k - 2,
+     2T + k - 1, 2T + k at the kernel's tile T), with runs of code 4 across
+     two borders, and on a view 5 B past a 16 B boundary, at k = 15, 16,
+     25, 32 and 37, canonical and forward, with and without the 16-lane
      padding; its fused partition filter at (p, P) = (0, 1), (1, 4), (3, 4)
      and (5, 16) on the race chunk; one 4 M-window scan tile of race20's
      draft. K2 at 2^20, 2^25 and 2^26 lanes, W = 1, 2 and 3, int32 and
@@ -215,7 +219,10 @@ Phases 1-2 always run; each phase is fatal on failure (nothing is caught):
      moved. Reports each case's ms, bound (tools/measure.py:bound: K3's
      codes read and keys and valid written, the funnel-shift form's
      operations; K2's words read and h written, ~8 operations a word + 10),
-     share and the twin's ms.
+     share and the twin's ms; on K3's main shapes also the copy floor
+     (K3_FLOOR_CU: the same output shape written with no arithmetic) and
+     the share of it, a per-k table beside the earlier design's times
+     (quoted from PERF.md), and each --ab-kmer version timed in turns.
 
 After the last phase the script fails if any module of the JAX package
 (``jasper_tpu`` or ``jasper_tpu.*``) was loaded in its process (phase 9's
@@ -2894,15 +2901,128 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
 K3_KS = (15, 16, 25, 32, 37)  # W = 1, 1, 2, 2, 3
 K3_PARTITIONS = ((0, 1), (1, 4), (3, 4), (5, 16))
 K3_CHUNK = 1 << 23  # count_reads' chunk of codes
+K3_MISALIGN = 5  # the offset view's codes start 5 B past a 16 B boundary
+K3_ITERS = 20  # calls a K3 time averages: at ~0.03-0.08 ms a call, one host
+               # hiccup in five calls moved a time by half
 K2_LANES = (1 << 20, 1 << 25, 1 << 26)  # 2^25: race100's split flush, 2^26: race20's
 FLUSH_CHUNKS = 8  # race20's stage: 8 chunks of 2^23 codes
-EXTRACT_DESIGN = ("a block of 256 threads takes 256 consecutive windows and stages their "
-                  "256 + k - 1 codes in shared memory, coalesced; a thread packs its "
-                  "window's k codes directly (validity from the same reads), takes the "
-                  "reverse complement by a two-bit-group reversal of the complemented "
-                  "key and keeps the smaller; the partition filter hashes the key in "
-                  "registers (hash.cuh); a row's W words stored adjacent, 16 B vectors "
-                  "at W = 2 and 4")
+EXTRACT_DESIGN = ("a block of 256 threads takes a tile of jt_windows_tile() windows: "
+                  "each thread loads 16 codes as one 16 B vector and packs them once "
+                  "into a 2-bit stream and a bad-code mask in shared memory; a window "
+                  "is then O(1): its key cut from W + 1 stream words by funnel shifts, "
+                  "its validity from its k mask bits, the reverse complement a "
+                  "two-bit-group reversal of the complemented key, the smaller kept; "
+                  "the partition filter hashes the key in registers (hash.cuh); threads "
+                  "stride over the tile's rows, 8 B stores at W = 1, 16 B at W = 2, rows "
+                  "staged in shared memory and stored as 16 B vectors at W = 3 and 4")
+# The earlier K3 (a thread a window packing its k codes one by one), quoted
+# from PERF.md (not measured by this script): phase 20's per-k table shows
+# them beside this run's times, labelled so; the kernels line does not.
+EARLIER_K3 = {"source": "PERF.md, the direct-pack design's own calls, not this run",
+              "card": "NVIDIA H100 80GB HBM3, 700.00 W",
+              "canonical_padded_ms": {15: 0.0973, 16: 0.0976, 25: 0.1308, 32: 0.1523,
+                                      37: 0.2583},
+              "forward_ms": {15: 0.0775, 16: 0.0771, 25: 0.1228, 32: 0.1435, 37: 0.2067},
+              "scan_tile_ms": 0.0674}
+# A yardstick of K3's output shape, built beside the kernels in phase 20 and
+# used nowhere in the port: a block a tile of 4096 windows reads its codes
+# once as 16 B vectors and writes its rows (8 W B each) and flag bytes as
+# 16 B vectors of those codes, with no arithmetic.
+K3_FLOOR_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void __launch_bounds__(256) copy_rows(const uint8_t* __restrict__ codes,
+    int64_t L, int64_t n_out, int W, int64_t* __restrict__ keys,
+    uint8_t* __restrict__ valid) {
+  __shared__ uint4 s[256];
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * 4096;
+  const int64_t g = w0 + 16 * threadIdx.x;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (g + 16 <= L) v = __ldg(reinterpret_cast<const uint4*>(codes + g));
+  else if (g < L) v.x = codes[g];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  const int rows = n_out - w0 < 4096 ? static_cast<int>(n_out - w0) : 4096;
+  const int words = rows * W;
+  uint4* kd = reinterpret_cast<uint4*>(keys + w0 * W);
+  for (int j = threadIdx.x; j < words / 2; j += 256) kd[j] = s[j & 255];
+  if ((words & 1) && threadIdx.x == 0) keys[w0 * W + words - 1] = s[0].x;
+  uint4* vd = reinterpret_cast<uint4*>(valid + w0);
+  for (int j = threadIdx.x; j < rows / 16; j += 256) vd[j] = s[j];
+  for (int j = rows / 16 * 16 + threadIdx.x; j < rows; j += 256)
+    valid[w0 + j] = static_cast<uint8_t>(s[j & 255].x);
+}
+extern "C" int jt_k3_floor(const void* codes, int64_t L, int64_t n_out, int W, void* keys,
+                           void* valid, void* stream) {
+  if (n_out <= 0) return 0;
+  if ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(keys) |
+       reinterpret_cast<uintptr_t>(valid)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  copy_rows<<<static_cast<unsigned>((n_out + 4095) / 4096), 256, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes), L, n_out, W, static_cast<int64_t*>(keys),
+      static_cast<uint8_t*>(valid));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+AB_KMER: dict = {}  # --ab-kmer: other kmer.cu versions' jt_windows, timed in turns
+
+
+def k3_floor_fn():
+    """K3_FLOOR_CU (build_so) -> copy(codes, keys, valid): K3's output shape
+    (keys int64 [n_out, W], valid [n_out], given) written from the codes
+    with no arithmetic, on the current stream."""
+    import ctypes
+
+    import torch
+
+    fn = build_so(K3_FLOOR_CU, "k3_floor").jt_k3_floor
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+    def copy(codes, keys, valid):
+        if fn(codes.data_ptr(), codes.shape[0], keys.shape[0], keys.shape[1],
+              keys.data_ptr(), valid.data_ptr(),
+              torch.cuda.current_stream(codes.device).cuda_stream):
+            raise RuntimeError("jt_k3_floor failed")
+
+    return copy
+
+
+def k3_launch(lib, codes, k: int, canonical: bool, pad16: bool, partition, keys,
+              valid) -> None:
+    """One launch of ``lib``'s jt_windows (csrc/kmer.cu's C interface) into
+    the given outputs on the current stream, past windows_cuda's checks,
+    allocations and launch count: the kernel's own time when timed."""
+    import torch
+
+    from jasper_tpu_torch.ops import kmer
+
+    bits, p = kmer.partition_bits(partition) if partition is not None else (0, 0)
+    if lib.jt_windows(codes.data_ptr(), codes.shape[0], k, int(canonical), int(pad16),
+                      bits, p, keys.data_ptr(), valid.data_ptr(), codes.device.index or 0,
+                      torch.cuda.current_stream(codes.device).cuda_stream):
+        raise RuntimeError("jt_windows failed")
+
+
+def other_kmers(paths: list[str]) -> dict:
+    """``--ab-kmer``: build other versions of csrc/kmer.cu (build_so, the
+    nvcc processes side by side) and bind each one's entries -> {file name:
+    its library}, for k3_launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jasper_tpu_torch.table import _build
+
+    def build(path):
+        with open(path) as f:
+            lib = build_so(f.read(), "ab_kmer_" + os.path.basename(path).split(".")[0])
+        _build.bind_kmer(lib)
+        return lib
+
+    with ThreadPoolExecutor(len(paths)) as pool:
+        libs = list(pool.map(build, paths))
+    return {os.path.basename(path): lib for path, lib in zip(paths, libs)}
 HASH_DESIGN = ("a thread a lane: its W words read as int64 (low 32 bits) or int32 bits, "
                "hash.cuh's mix32 in registers, one int64 stored")
 
@@ -2928,14 +3048,22 @@ def _max_abs_err(got, want) -> int:
 
 
 def k3_case(codes, k: int, canonical: bool, pad16: bool, partition, what: str,
-            iters: int = 5) -> dict:
+            iters: int = 5, floor=None) -> dict:
     """K3 (windows_cuda) against its plain twin (windows_plain) on the same
-    CUDA codes, keys and valid bit for bit on every lane; the kernel's and
-    the twin's ms (CUDA events), the bound (codes read once, keys and valid
-    written once; k3_ops a window) and the share."""
+    CUDA codes, keys and valid bit for bit on every lane; the kernel's ms
+    (CUDA events over K3_ITERS launches of jt_windows into given outputs,
+    k3_launch: the card's time, which the wrapper's ~0.03-0.05 ms of host
+    time a call would otherwise hide at these sizes) and the wrapper's
+    (windows_cuda, K3_ITERS calls), the twin's (``iters`` calls), the bound
+    (codes read once, keys and valid written once; k3_ops a window) and the
+    share. With ``floor`` (k3_floor_fn), the copy floor's ms for the same
+    output shape and the kernel's share of it; then every ``--ab-kmer``
+    version, equal to this kernel's output, timed against it in turns
+    (k3_launch both)."""
     import torch
 
     from jasper_tpu_torch.ops import kmer
+    from jasper_tpu_torch.table import _build
 
     args = (codes, k, canonical)
     kw = {"pad16": pad16, "partition": partition}
@@ -2949,14 +3077,33 @@ def k3_case(codes, k: int, canonical: bool, pad16: bool, partition, what: str,
         raise AssertionError(f"K3 {what}: keys or valid != the plain twin")
     n_out, W = got[0].shape
     filtered = partition is not None and partition[1] > 1
+    keys, valid = torch.empty_like(got[0]), torch.empty_like(got[1])
+
+    def launch(lib):
+        return lambda: k3_launch(lib, codes, k, canonical, pad16, partition, keys, valid)
+
     row = {"case": what, "k": k, "canonical": canonical, "pad16": pad16,
            "partition": partition, "codes": int(codes.shape[0]), "lanes": int(n_out),
            "valid": int(got[1].sum()), "max_abs_err": _max_abs_err(got, want),
-           "ms": cuda_ms(lambda: kmer.windows_cuda(*args, **kw), iters),
+           "ms": cuda_ms(launch(_build.load()), K3_ITERS),
+           "wrapper_ms": cuda_ms(lambda: kmer.windows_cuda(*args, **kw), K3_ITERS),
            "plain_ms": cuda_ms(lambda: kmer.windows_plain(*args, **kw), iters),
            **bound(codes.shape[0] + n_out * (8 * W + 1),
                    max(codes.shape[0] - k + 1, 0) * k3_ops(W, canonical, filtered))}
     row["share_of_bound"] = row["bound_ms"] / row["ms"] if row["ms"] else None
+    if floor is not None:
+        row["floor_ms"] = cuda_ms(lambda: floor(codes, keys, valid), K3_ITERS)
+        row["share_of_floor"] = row["floor_ms"] / row["ms"]
+        for name, other in AB_KMER.items():
+            launch(other)()
+            torch.cuda.synchronize()
+            if not (torch.equal(keys, got[0]) and torch.equal(valid, got[1])):
+                raise AssertionError(f"--ab-kmer {name} != this checkout's K3 ({what}, k={k})")
+            turns = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other", "other", "this"):
+                lib = other if who == "other" else _build.load()
+                turns[who].append(cuda_ms(launch(lib), K3_ITERS))
+            row.setdefault("ab_ms", {})[name] = turns
     return row
 
 
@@ -2980,6 +3127,23 @@ def k2_case(words, what: str, iters: int = 5) -> dict:
            **bound(B * (W * words.element_size() + 8), B * (8 * W + 10))}
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
     return row
+
+
+def kmer_tile() -> int:
+    """csrc/kmer.cu's K3 tile: the windows a block takes."""
+    from jasper_tpu_torch.table import _build
+
+    return _build.load().jt_windows_tile()
+
+
+def border_codes(rng, T: int, k: int, device):
+    """synthetic_codes of 3T + k codes with runs of code 4 across K3's
+    tile borders: codes T - 3 to T + 2 (the first border) and 2T + k - 4
+    to 2T + k + 1 (past the second tile's halo)."""
+    codes = synthetic_codes(rng, 3 * T + k, device)
+    codes[T - 3 : T + 3] = 4
+    codes[2 * T + k - 4 : 2 * T + k + 2] = 4
+    return codes
 
 
 def synthetic_codes(rng, L: int, device):
@@ -3034,14 +3198,20 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
     twins on the same CUDA tensors, bit for bit on every lane: K3 on
     race20's first 2^23 codes (count_reads' first chunk) and on seeded
     synthetic codes (N runs, codes 4, 5 and 255) of k - 1, k, k + 15 and
-    2^23 + 7 codes, at k = 15, 16, 25, 32, 37, canonical and forward, with
+    2^23 + 7 codes, of the six lengths about K3's tile borders, with runs
+    of code 4 across two borders (border_codes) and as a view 5 B past a
+    16 B boundary, at k = 15, 16, 25, 32, 37, canonical and forward, with
     and without the 16-lane padding; its partition filter at (p, P) =
     (0, 1), (1, 4), (3, 4), (5, 16) on the race chunk, canonical padded and
     forward; one 4 M-window scan tile of race20's draft; K2 at 2^20, 2^25
     and 2^26 lanes, W = 1, 2, 3, int32 and int64 words. Gates: every
-    output equal to its twin, the launch counts moved. Reports each case's
-    ms, bound, share and the twin's ms; and race20's first stage flushed
-    with K2 and with the torch hash in turns (flush_with_each_hash)."""
+    output equal to its twin, every --ab-kmer version's equal to this
+    kernel's, the launch counts moved. Reports each case's ms, bound,
+    share and the twin's ms; on the race chunk's main forms and the scan
+    tile the copy floor's ms and the share of it (k3_per_k, beside the
+    earlier design's quoted times) and the --ab-kmer times in turns (k3_ab);
+    and race20's first stage flushed with K2 and with the torch hash in
+    turns (flush_with_each_hash)."""
     import torch
 
     from jasper_tpu_torch.count.sorted_runs import extract_windows
@@ -3062,21 +3232,31 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
     flush = flush_with_each_hash(stage, device)
     del stage
     draft = read_fasta_one(asm)
+    floor = k3_floor_fn()
+    T = kmer_tile()
     before = (kmer.LAUNCHES, kmer.FILTER_LAUNCHES, hashing.LAUNCHES)
     k3 = []
     for k in K3_KS:
+        # lengths about the kernel's tile borders: one tile of windows less
+        # one, exact, plus one; two tiles less one, exact, plus one
+        borders = (T + k - 2, T + k - 1, T + k, 2 * T + k - 2, 2 * T + k - 1, 2 * T + k)
         inputs = [("race20 chunk", race_chunk)] + [
             (f"synthetic {L}", synthetic_codes(rng, L, device))
-            for L in (k - 1, k, k + 15, K3_CHUNK + 7)]
+            for L in (k - 1, k, k + 15, K3_CHUNK + 7) + borders] + [
+            ("bad runs across tile borders", border_codes(rng, T, k, device)),
+            (f"synthetic view {K3_MISALIGN} B past 16 B",
+             synthetic_codes(rng, 2 * T + k + K3_MISALIGN, device)[K3_MISALIGN:])]
         for what, codes in inputs:
             for canonical in (True, False):
                 for pad16 in (False, True):
-                    k3.append(k3_case(codes, k, canonical, pad16, None, what))
+                    main = what == "race20 chunk" and pad16 == canonical
+                    k3.append(k3_case(codes, k, canonical, pad16, None, what,
+                                      floor=floor if main else None))
     for p, P in K3_PARTITIONS:
         for canonical in (True, False):
             k3.append(k3_case(race_chunk, 25, canonical, canonical, (p, P), "race20 chunk"))
     k3.append(k3_case(draft_tile(draft, device), 25, True, False, None,
-                      "race20 draft scan tile"))
+                      "race20 draft scan tile", floor=floor))
     k2 = []
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -3097,6 +3277,32 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
     def pick(rows, **want):
         return next(r for r in rows if all(r[key] == v for key, v in want.items()))
 
+    # per k: the count chunk's canonical padded and forward times beside the
+    # byte bound, the copy floor and the earlier design's (quoted, not measured)
+    per_k = []
+    for k in K3_KS:
+        c = pick(k3, case="race20 chunk", k=k, canonical=True, pad16=True, partition=None)
+        f = pick(k3, case="race20 chunk", k=k, canonical=False, pad16=False, partition=None)
+        per_k.append({"k": k, "W": kmer.words_per_kmer(k),
+                      "canonical_padded_ms": c["ms"], "forward_ms": f["ms"],
+                      "canonical_padded_wrapper_ms": c["wrapper_ms"],
+                      "bound_ms": c["bound_ms"], "share_of_bound": c["share_of_bound"],
+                      "floor_ms": c["floor_ms"], "share_of_floor": c["share_of_floor"],
+                      "forward_share_of_floor": f["share_of_floor"],
+                      "plain_ms": c["plain_ms"],
+                      "earlier_canonical_padded_ms_quoted":
+                          EARLIER_K3["canonical_padded_ms"][k],
+                      "earlier_forward_ms_quoted": EARLIER_K3["forward_ms"][k]})
+    # every --ab-kmer version against this kernel in turns: the median of
+    # each one's three times, and their ratio
+    ab = {name: [{"case": r["case"], "k": r["k"], "canonical": r["canonical"],
+                  "this_ms": float(np.median(r["ab_ms"][name]["this"])),
+                  "other_ms": float(np.median(r["ab_ms"][name]["other"])),
+                  "other_over_this": float(np.median(r["ab_ms"][name]["other"])
+                                           / np.median(r["ab_ms"][name]["this"]))}
+                 for r in k3 if "ab_ms" in r]
+          for name in AB_KMER}
+
     # the count's chunk (canonical, padded) and race20's flush (2^26 lanes,
     # W = 2): the kernels line's rows
     k3_main = pick(k3, case="race20 chunk", k=25, canonical=True, pad16=True, partition=None)
@@ -3111,18 +3317,21 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
     torch.cuda.synchronize()
     k2_main = pick(k2, lanes=K2_LANES[2], W=2, dtype="torch.int64")
     # every case in one short row: its inputs, ms, the twin's ms, bound, share
-    k3_cols = ("case", "k", "canonical", "pad16", "partition", "lanes", "ms", "plain_ms",
-               "bound_ms", "share_of_bound")
+    k3_cols = ("case", "k", "canonical", "pad16", "partition", "lanes", "ms", "wrapper_ms",
+               "plain_ms", "bound_ms", "share_of_bound", "floor_ms", "share_of_floor")
     k2_cols = ("lanes", "W", "dtype", "ms", "plain_ms", "bound_ms", "share_of_bound")
     out = {"k3_cases": len(k3), "k2_cases": len(k2), "launches_in_comparison": moved,
            "k3_max_abs_err": max(r["max_abs_err"] for r in k3),
            "k2_max_abs_err": max(r["max_abs_err"] for r in k2),
            "k3_count_chunk": k3_main,
-           "k3_scan_tile": pick(k3, case="race20 draft scan tile"),
+           "k3_scan_tile": {**pick(k3, case="race20 draft scan tile"),
+                            "earlier_ms_quoted": EARLIER_K3["scan_tile_ms"]},
+           "k3_tile": T, "k3_per_k": per_k, "k3_earlier_design_quoted": EARLIER_K3,
+           "k3_ab": ab,
            "k2_race20_flush": k2_main,
            "k2_race100_flush": pick(k2, lanes=K2_LANES[1], W=2, dtype="torch.int64"),
            "stage_flush_by_hash": flush,
-           "k3_columns": k3_cols, "k3": [[r[c] for c in k3_cols] for r in k3],
+           "k3_columns": k3_cols, "k3": [[r.get(c) for c in k3_cols] for r in k3],
            "k2_columns": k2_cols, "k2": [[r[c] for c in k2_cols] for r in k2],
            "seconds": time.perf_counter() - t0, "card": card}
     log("phase 20 " + json.dumps(out))
@@ -3399,6 +3608,10 @@ def main(argv=None) -> int:
                     help="another version of csrc/probe.cu: its unranged kernel is "
                          "timed against this checkout's in turns at every probe "
                          "comparison (ab_ms in the probe rows)")
+    ap.add_argument("--ab-kmer", default=None, metavar="FILES",
+                    help="other versions of csrc/kmer.cu, comma-separated: each one's "
+                         "K3 is held to this checkout's and timed against it in turns "
+                         "on phase 20's main shapes (k3_ab in its line)")
     ap.add_argument("--workdir", default=None,
                     help="scratch for db.jf/asm.fa/outputs (default "
                          ".smoke_work/ in the checkout; removed at the end)")
@@ -3438,6 +3651,8 @@ def main(argv=None) -> int:
     if args.ab_probe:
         global AB_PROBE
         AB_PROBE = other_probe(args.ab_probe)
+    if args.ab_kmer:
+        AB_KMER.update(other_kmers(args.ab_kmer.split(",")))
 
     workdir = args.workdir or os.path.join(HERE, ".smoke_work")
     os.makedirs(workdir, exist_ok=True)

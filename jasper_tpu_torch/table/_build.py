@@ -157,9 +157,12 @@ def bind_kmer(lib: ctypes.CDLL) -> None:
     """Argument types of csrc/kmer.cu's entries: K3's ``jt_windows``
     (codes, L, k, canonical, pad16, part_bits, part_p, the key and valid
     outputs) and K2's ``jt_mix32`` (words, B, W, in_is_int32, the hash
-    output), each then the device and the stream."""
+    output), each then the device and the stream; and of K3's tile query
+    ``jt_windows_tile``."""
     p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
     lib.jt_windows.restype = i32
     lib.jt_windows.argtypes = [p, i64, i32, i32, i32, i32, u32, p, p, i32, p]
+    lib.jt_windows_tile.restype = i32
+    lib.jt_windows_tile.argtypes = []
     lib.jt_mix32.restype = i32
     lib.jt_mix32.argtypes = [p, i64, i32, i32, p, i32, p]

@@ -11,11 +11,21 @@ partition filter) against jasper_tpu's count/sorted_runs.py:297 at P = 1,
 Also the dispatch rule (a CPU tensor never loads the kernel library; the
 CUDA wrappers refuse a CPU tensor before any build), that the plain twins
 of K1 and K4 never reach the K2 dispatcher, ``bind_kmer``'s argument types,
-and a numpy model of jt_windows' arithmetic (the direct pack of a window's
-k codes, the reverse complement by two-bit-group reversal, the 128-bit
-compare, the pad lanes and the fused filter) held to the plain twin."""
+and a numpy model of what jt_windows computes, held to ``_windows_plain``
+and ``windows_plain`` with tolerance 0 on every lane: tiles of T windows
+(the kernel's T, read from csrc/kmer.cu, and a small one) with their k - 1
+halo, each tile's chunks of 16 codes read from 16 B boundaries whatever
+the codes' offset, each chunk packed once into a 2-bit stream word and a
+16-bit bad-code mask by the kernel's carry-free multiplications, the masks
+stored swapped in pairs so that they read as 32-code words, each window's
+key cut from W + 1 stream words and its validity from its k mask bits by
+the funnel shifts' definitions, the reverse complement by two-bit-group
+reversal, the 2k-bit compare, the pad lanes and the fused filter; at k =
+1-64, on lengths that straddle tile borders and with bad runs across them."""
 
 import ctypes
+import os
+import re
 import types
 
 import jax.numpy as jnp
@@ -35,6 +45,8 @@ from jasper_tpu_torch.table import probe as tprobe
 
 KS = [15, 16, 25, 32, 37]
 LENGTHS = ["short", "exact", "k+15", "odd"]
+with open(os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc", "kmer.cu")) as _f:
+    KERNEL_TILE = int(re.search(r"constexpr int kTile = (\d+);", _f.read()).group(1))
 
 
 def _codes(rng, L: int) -> np.ndarray:
@@ -198,6 +210,7 @@ def test_plain_twins_never_reach_the_hash_kernel(kernel):
 
 def test_bind_kmer_sets_the_argument_types():
     stub = types.SimpleNamespace(jt_windows=types.SimpleNamespace(),
+                                 jt_windows_tile=types.SimpleNamespace(),
                                  jt_mix32=types.SimpleNamespace())
     _build.bind_kmer(stub)
     p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
@@ -206,6 +219,7 @@ def test_bind_kmer_sets_the_argument_types():
     # words, B, W, in_is_int32, out, device, stream
     assert stub.jt_mix32.argtypes == [p, i64, i32, i32, p, i32, p]
     assert stub.jt_windows.restype is i32 and stub.jt_mix32.restype is i32
+    assert stub.jt_windows_tile.argtypes == [] and stub.jt_windows_tile.restype is i32
 
 
 # -- a numpy model of jt_windows' arithmetic -----------------------------------
@@ -224,46 +238,115 @@ def _rev2(x: np.ndarray) -> np.ndarray:
     return ((x >> U64(1)) & m) | ((x & m) << U64(1))
 
 
+M32 = U64(0xFFFFFFFF)
+
+
+def _pack4(x: np.ndarray) -> np.ndarray:
+    """The kernel's pack4: four codes (the bytes of u32 x, the first in the
+    low byte) -> their 2-bit values in 8 bits, the first highest."""
+    return (((x & U64(0x03030303)) * U64(0x40100401)) & M32) >> U64(24)
+
+
+def _bad4(x: np.ndarray) -> np.ndarray:
+    """The kernel's bad4: four codes -> a 4-bit mask of those > 3, the
+    first in bit 3."""
+    z = x & U64(0xFCFCFCFC)
+    f = (((z & U64(0x7F7F7F7F)) + U64(0x7F7F7F7F)) | z) & U64(0x80808080)
+    return (((f >> U64(7)) * U64(0x08040201)) & M32) >> U64(24)
+
+
+def _funnel_l(lo, hi, s):
+    """__funnelshift_l: the top 32 bits of (hi:lo) << s, 0 <= s < 32."""
+    return (((U64(hi) << U64(32)) | U64(lo)) >> (U64(32) - U64(s))) & M32
+
+
+def _funnel_r(lo, hi, s):
+    """__funnelshift_r: the low 32 bits of (hi:lo) >> s, 0 <= s < 32."""
+    return (((U64(hi) << U64(32)) | U64(lo)) >> U64(s)) & M32
+
+
 def _model_windows(codes: np.ndarray, k: int, canonical: bool, pad16: bool = False,
-                   partition=None):
-    """What jt_windows computes lane by lane: each window's k codes packed
-    first base most significant into (hi, lo), validity from the same k
-    reads, the reverse complement as rev2 of the complemented key shifted
-    down to 2k bits, the smaller taken as a 2k-bit integer; pad lanes zero
-    and invalid; the filter on hash.cuh's mix32 of the key words."""
+                   partition=None, T: int = KERNEL_TILE, mis: int = 0):
+    """What jt_windows computes, tile by tile, for codes that start ``mis``
+    bytes past a 16 B boundary: a tile of T windows stages T / 16 + 8
+    chunks, chunk c the 16 codes from w0 - mis + 16c (zero outside the
+    array and past the chunks that hold the tile's T + k - 1 codes), each
+    packed once (pack4, bad4); window t of the tile starts at stream code
+    u = mis + t: its key is the top 2k bits of W funnel shifts of stream
+    words c..c+W (c = u >> 4), its validity the top k of two or three
+    funnel shifts of the 32-code mask words; the reverse complement as rev2
+    of the complemented key shifted down to 2k bits, the smaller taken as a
+    2k-bit integer; lanes past n zero and invalid; the filter on hash.cuh's
+    mix32 of the key words."""
     L, W = len(codes), _words(k)
     n = max(L - k + 1, 0)
     n_out = -(-n // 16) * 16 if pad16 else n
-    lo, hi = np.zeros(n, U64), np.zeros(n, U64)
-    bad = np.zeros(n, bool)
-    c = codes.astype(U64)
-    for p in range(k):
-        x = c[p : p + n]
-        bad |= x > U64(3)
-        if W > 2:
-            hi = (hi << U64(2)) | (lo >> U64(62))
-        lo = (lo << U64(2)) | (x & U64(3))
-    if canonical:
-        if W > 2:
-            a, b = _rev2(~lo), _rev2(~hi)
-            sh = 128 - 2 * k
-            rlo = ((b >> U64(sh)) | (a << U64(64 - sh))) if sh else b
-            rhi = a >> U64(sh)
-        else:
-            rlo, rhi = _rev2(~lo) >> U64(64 - 2 * k), np.zeros(n, U64)
-        take = (rhi < hi) | ((rhi == hi) & (rlo < lo))
-        lo, hi = np.where(take, rlo, lo), np.where(take, rhi, hi)
-    M = U64(0xFFFFFFFF)
-    words = np.stack([lo & M, lo >> U64(32), hi & M, hi >> U64(32)], axis=1)[:, :W]
     keys = np.zeros((n_out, W), np.int64)
-    keys[:n] = words.astype(np.int64)
     valid = np.zeros(n_out, bool)
-    valid[:n] = ~bad
-    if partition is not None and partition[1] > 1:
-        bits = partition[1].bit_length() - 1
-        h = th.hash_words_np(words.astype(np.uint32)).astype(np.int64)
-        valid[:n] &= (h >> (32 - bits)) == partition[0]
+    n_chunks = T // 16 + 8
+    loaded = (mis + T + k - 1 + 15) >> 4
+    chunk = np.arange(n_chunks)
+    for w0 in range(0, n_out, T):
+        g = w0 - mis + 16 * chunk[:, None] + np.arange(16)[None, :]
+        inside = (g >= 0) & (g < L) & (chunk[:, None] < loaded)
+        b = np.where(inside, codes[np.clip(g, 0, max(L - 1, 0))], 0).astype(U64)
+        b = b.reshape(n_chunks, 4, 4)  # [chunk, word, byte]: a u32 a word
+        x = b[:, :, 0] | (b[:, :, 1] << U64(8)) | (b[:, :, 2] << U64(16)) | (b[:, :, 3] << U64(24))
+        code = ((_pack4(x[:, 0]) << U64(24)) | (_pack4(x[:, 1]) << U64(16))
+                | (_pack4(x[:, 2]) << U64(8)) | _pack4(x[:, 3]))
+        bad16 = np.zeros(n_chunks, np.uint16)
+        bad16[chunk ^ 1] = ((_bad4(x[:, 0]) << U64(12)) | (_bad4(x[:, 1]) << U64(8))
+                            | (_bad4(x[:, 2]) << U64(4)) | _bad4(x[:, 3]))
+        bad32 = bad16.view("<u4").astype(U64)
+        live = min(max(n - w0, 0), T)
+        u = (mis + np.arange(live)).astype(U64)
+        c, s = (u >> U64(4)).astype(np.int64), U64(2) * (u & U64(15))
+        G = [_funnel_l(code[c + j + 1], code[c + j], s) for j in range(W)]
+        sh = 32 * W - 2 * k
+        kw = [_funnel_r(G[W - 1 - j], G[W - 2 - j] if j + 1 < W else U64(0), sh)
+              for j in range(W)]
+        q, r = (u >> U64(5)).astype(np.int64), u & U64(31)
+        f0 = _funnel_l(bad32[q + 1], bad32[q], r)
+        if W <= 2:
+            ok = (f0 >> U64(32 - k)) == 0
+        else:
+            ok = (f0 | (_funnel_l(bad32[q + 2], bad32[q + 1], r) >> U64(64 - k))) == 0
+        if canonical:
+            lo = kw[0] | (kw[1] << U64(32) if W > 1 else U64(0))
+            hi = (kw[2] | (kw[3] << U64(32) if W > 3 else U64(0))) if W > 2 else np.zeros(live, U64)
+            if W > 2:
+                a, bb = _rev2(~lo), _rev2(~hi)
+                sh2 = 128 - 2 * k
+                rlo = ((bb >> U64(sh2)) | (a << U64(64 - sh2))) if sh2 else bb
+                rhi = a >> U64(sh2)
+            else:
+                rlo, rhi = _rev2(~lo) >> U64(64 - 2 * k), np.zeros(live, U64)
+            take = (rhi < hi) | ((rhi == hi) & (rlo < lo))
+            lo, hi = np.where(take, rlo, lo), np.where(take, rhi, hi)
+            kw = [lo & M32, lo >> U64(32), hi & M32, hi >> U64(32)][:W]
+        words = np.stack(kw, axis=1) if live else np.zeros((0, W), U64)
+        if partition is not None and partition[1] > 1 and live:
+            bits = partition[1].bit_length() - 1
+            h = th.hash_words_np(words.astype(np.uint32)).astype(np.int64)
+            ok = ok & ((h >> (32 - bits)) == partition[0])
+        keys[w0 : w0 + live] = words.astype(np.int64)
+        valid[w0 : w0 + live] = ok
     return keys, valid
+
+
+def test_kernel_model_packs_each_code_once():
+    """pack4 and bad4 against a code-by-code pack: every byte value at
+    every position of a word, and seeded words."""
+    rng = np.random.default_rng(9)
+    vals = np.arange(256, dtype=U64)
+    words = [vals << U64(8 * i) for i in range(4)]
+    words.append(rng.integers(0, 1 << 32, size=20000, dtype=np.uint64))
+    for x in words:
+        b = [(x >> U64(8 * i)) & U64(255) for i in range(4)]
+        want_pack = sum((b[i] & U64(3)) << U64(6 - 2 * i) for i in range(4))
+        want_bad = sum((b[i] > U64(3)).astype(U64) << U64(3 - i) for i in range(4))
+        np.testing.assert_array_equal(_pack4(x), want_pack)
+        np.testing.assert_array_equal(_bad4(x), want_bad)
 
 
 @pytest.mark.parametrize("k", KS + [1, 31, 33, 48, 49, 64])
@@ -295,5 +378,46 @@ def test_kernel_model_pads_and_filters_as_extract_windows(k, canonical):
             got = _model_windows(codes, k, canonical, pad16=pad16, partition=partition)
             assert want[0].shape[0] == (-(-(len(codes) - k + 1) // 16) * 16 if pad16
                                         else len(codes) - k + 1)
+            np.testing.assert_array_equal(got[0], want[0].numpy())
+            np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+# lengths about a tile border: one tile of windows less one, exact, plus
+# one; two tiles less one, exact, plus one
+BORDERS = {"T+k-2": lambda T, k: T + k - 2, "T+k-1": lambda T, k: T + k - 1,
+           "T+k": lambda T, k: T + k, "2T+k-2": lambda T, k: 2 * T + k - 2,
+           "2T+k-1": lambda T, k: 2 * T + k - 1, "2T+k": lambda T, k: 2 * T + k,
+           "bad runs across borders": None}
+
+
+def _border_codes(k: int, which: str, T: int) -> np.ndarray:
+    """Seeded codes of a length about the tile borders; for "bad runs
+    across borders" 3T + k codes with runs of code 4 across the first
+    border (codes T - 3 to T + 2) and past the second tile's halo."""
+    if BORDERS[which] is None:
+        codes = _codes(np.random.default_rng(T + k), 3 * T + k)
+        codes[T - 3 : T + 3] = 4
+        codes[2 * T + k - 4 : 2 * T + k + 2] = 4
+        return codes
+    L = BORDERS[which](T, k)
+    return _codes(np.random.default_rng(T * 3 + L), L)
+
+
+@pytest.mark.parametrize("T", [64, KERNEL_TILE])
+@pytest.mark.parametrize("which", list(BORDERS))
+@pytest.mark.parametrize("k", KS + [1, 31, 33, 48, 49, 64])
+def test_kernel_model_across_tile_borders(k, which, T):
+    codes = _border_codes(k, which, T)
+    t = torch.from_numpy(codes)
+    for canonical in (True, False):
+        want = tk._windows_plain(t, k, canonical)
+        for mis in (0, 5):
+            got = _model_windows(codes, k, canonical, T=T, mis=mis)
+            np.testing.assert_array_equal(got[0], want[0].numpy())
+            np.testing.assert_array_equal(got[1], want[1].numpy())
+        for pad16, partition in [(True, None), (True, (1, 4)), (False, (3, 4))]:
+            want = tk.windows_plain(t, k, canonical, pad16=pad16, partition=partition)
+            got = _model_windows(codes, k, canonical, pad16=pad16, partition=partition,
+                                 T=T, mis=11)
             np.testing.assert_array_equal(got[0], want[0].numpy())
             np.testing.assert_array_equal(got[1], want[1].numpy())
