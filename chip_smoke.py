@@ -255,6 +255,7 @@ from jasper_tpu_torch.tools.measure import (
     probe_bound,
     probed_rows,
 )
+from jasper_tpu_torch.utils import trace
 
 RACE_RECORDS = 55_718_396  # race20 distinct 25-mers (race_artifacts/race20_tpu_run.log:8)
 RACE_KB = 20_000  # race20 genome (tools/race_reference.py make_data)
@@ -307,15 +308,22 @@ def distinct_keys(rng, k: int, n: int, salt: int) -> np.ndarray:
     return keys
 
 
+def launched(since: dict, *names: str) -> int:
+    """How far the trace counters ``names`` grew, together, since ``since``
+    (a trace.counters() snapshot)."""
+    now = trace.counters()
+    return sum(now.get(n, 0) - since.get(n, 0) for n in names)
+
+
 def compare_probe(tab, keys, valid, iters=(20, 5), owner_bits: int = 0) -> dict:
     """Kernel vs plain on the same CUDA tensors: equality, times, the bound
     and the kernel's share of it; with ``owner_bits``, ``tab`` is a shard
-    of a sharded table (those launches count in OWNER_LAUNCHES)."""
+    of a sharded table (those launches count in k1.owner_launches)."""
     import torch
 
     from jasper_tpu_torch.table import probe
 
-    launches0 = probe.LAUNCHES + probe.OWNER_LAUNCHES
+    since = trace.counters()
     got = probe.lookup_kmers_cuda(tab, keys, valid, owner_bits)
     want = probe.lookup_kmers_plain(tab, keys, valid, owner_bits)
     torch.cuda.synchronize()
@@ -331,7 +339,7 @@ def compare_probe(tab, keys, valid, iters=(20, 5), owner_bits: int = 0) -> dict:
     res["plain_ms"] = cuda_ms(lambda: probe.lookup_kmers_plain(tab, keys, valid, owner_bits),
                               iters[1])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    res["launches_in_comparison"] = probe.LAUNCHES + probe.OWNER_LAUNCHES - launches0
+    res["launches_in_comparison"] = launched(since, "k1.launches", "k1.owner_launches")
     if AB_PROBE is not None and not owner_bits:  # the other kernel against this one, in turns
         if not torch.equal(AB_PROBE(tab, keys, valid), got):
             raise AssertionError("--ab-probe kernel != this checkout's")
@@ -642,7 +650,6 @@ def phase_runner(args, rng, device, workdir: str) -> dict:
 
     from jasper_tpu_torch.io.jf import write_jf
     from jasper_tpu_torch.polish import runner
-    from jasper_tpu_torch.table import probe
 
     k = 25
     n_bp = int(args.genome_mbp * 1_000_000)
@@ -666,12 +673,12 @@ def phase_runner(args, rng, device, workdir: str) -> dict:
     cwd = os.getcwd()
     os.chdir(workdir)
     torch.cuda.reset_peak_memory_stats(device)
-    probe.LAUNCHES = 0
+    since = trace.counters()
     t0 = time.perf_counter()
     rep = runner.run(["--db", db, "-q", asm, "--ksize", str(k), "-p", "2",
                       "--fix", "--test", "-thre", "5", "--device", str(device)])
     wall = time.perf_counter() - t0
-    launches = probe.LAUNCHES
+    launches = launched(since, "k1.launches")
     peak = torch.cuda.max_memory_allocated(device)
     os.chdir(cwd)
 
@@ -1187,41 +1194,27 @@ PASS_RE = re.compile(r"count: pass (\d+)/(\d+) counted \((\d+) resident lanes, "
 PARTS_RE = re.compile(r"count: (\d+) hash partitions in (\d+) passes")
 
 
-def reset_k4() -> None:
-    """Zero the K4m and K4f launch counts (count/sorted_runs.py)."""
-    from jasper_tpu_torch.count import sorted_runs as sr
-
-    sr.MERGE_LAUNCHES = sr.RUNS_LAUNCHES = sr.COMPACT_LAUNCHES = 0
-
-
-def k4_launches(what: str, gate: bool = True) -> dict:
-    """K4m and K4f launches since reset_k4() (K4f's run totals and its
-    counts-given compaction apart); with ``gate`` fails unless K4m and
-    K4f's run totals ran (the count went through them)."""
-    from jasper_tpu_torch.count import sorted_runs as sr
-
-    got = {"merge_launches": sr.MERGE_LAUNCHES, "runs_launches": sr.RUNS_LAUNCHES,
-           "compact_launches": sr.COMPACT_LAUNCHES}
+def k4_launches(what: str, since: dict, gate: bool = True) -> dict:
+    """K4m and K4f launches since the trace.counters() snapshot ``since``
+    (K4f's run totals and its counts-given compaction apart); with ``gate``
+    fails unless K4m and K4f's run totals ran (the count went through
+    them)."""
+    got = {"merge_launches": launched(since, "k4m.launches"),
+           "runs_launches": launched(since, "k4f.launches"),
+           "compact_launches": launched(since, "k4f.compact_launches")}
     if gate and not (got["merge_launches"] > 0 and got["runs_launches"] > 0):
         raise AssertionError(f"{what}: the count did not run both K4 kernels: {got}")
     return got
 
 
-def reset_k23() -> None:
-    """Zero the K2 and K3 launch counts (ops/hashing.py, ops/kmer.py)."""
-    from jasper_tpu_torch.ops import hashing, kmer
-
-    hashing.LAUNCHES = kmer.LAUNCHES = kmer.FILTER_LAUNCHES = 0
-
-
-def k23_launches(what: str, k2: bool = True, k3: bool = True,
+def k23_launches(what: str, since: dict, k2: bool = True, k3: bool = True,
                  filtered: bool = False) -> dict:
-    """K2 and K3 launches since reset_k23() (K3's with the partition
-    filter fused apart); fails unless each one asked for ran."""
-    from jasper_tpu_torch.ops import hashing, kmer
-
-    got = {"k2_launches": hashing.LAUNCHES, "k3_launches": kmer.LAUNCHES,
-           "k3_filter_launches": kmer.FILTER_LAUNCHES}
+    """K2 and K3 launches since the trace.counters() snapshot ``since``
+    (K3's with the partition filter fused apart); fails unless each one
+    asked for ran."""
+    got = {"k2_launches": launched(since, "k2.launches"),
+           "k3_launches": launched(since, "k3.launches"),
+           "k3_filter_launches": launched(since, "k3.filter_launches")}
     need = [key for key, on in zip(got, (k2, k3, filtered)) if on]
     if any(got[key] <= 0 for key in need):
         raise AssertionError(f"{what}: the path did not run {need}: {got}")
@@ -1253,7 +1246,6 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     from jasper_tpu_torch.count import counter
     from jasper_tpu_torch.count.histogram import histogram_rows, read_histogram
     from jasper_tpu_torch.pipeline import cli
-    from jasper_tpu_torch.table import probe
     from jasper_tpu_torch.table.kmer_table import table_from_numpy
     from jasper_tpu_torch.table.native_table import NativeTableQuery
 
@@ -1261,17 +1253,15 @@ def phase_driver(asm: str, reads: str, genome: bytes, errors, device, card: str,
     events = EventLog()
     peaks = PeakLog(device, k)
     torch.cuda.reset_peak_memory_stats(device)
-    probe.LAUNCHES = 0
-    reset_k4()
-    reset_k23()
+    since = trace.counters()
     t0 = time.perf_counter()
     with patched(event_wraps(events) + peaks.wraps()):
         res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
                        "-b", "25000000", "--workdir", wd, "--device", str(device)])
     wall = time.perf_counter() - t0
-    launches = probe.LAUNCHES
-    k4 = k4_launches("driver path")
-    k23 = k23_launches("driver path")
+    launches = launched(since, "k1.launches")
+    k4 = k4_launches("driver path", since)
+    k23 = k23_launches("driver path", since)
     peak = max(peaks.peak, torch.cuda.max_memory_allocated(device))
 
     stages = res["stages"]
@@ -1430,8 +1420,7 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
             log(msg)
 
         pulls.seconds = dict.fromkeys(pulls.seconds, 0.0)
-        reset_k4()
-        reset_k23()
+        since = trace.counters()
         os.environ.update(env)
         try:
             with patched(peaks.wraps() + pulls.wraps()):
@@ -1442,9 +1431,9 @@ def phase_branches(reads: str, scan_tab, records: int, peak_resident: int, devic
             for var in env:
                 del os.environ[var]
         wall = time.perf_counter() - t0
-        k4 = k4_launches(name, gate=False)
+        k4 = k4_launches(name, since, gate=False)
         # the grouped passes extract through K3's fused partition filter
-        k23 = k23_launches(name, filtered="JT_COUNT_GROUPS" in env)
+        k23 = k23_launches(name, since, filtered="JT_COUNT_GROUPS" in env)
         msgs = [m for _, m in lines]
         if not any(m.startswith(line) for m in msgs):
             raise AssertionError(f"{name}: no '{line}' line: {msgs}")
@@ -1524,7 +1513,6 @@ def phase_partitioned_driver(asm: str, jf: str, run_dir: str, genome: bytes,
 
     from jasper_tpu_torch.parallel.scanner import SCAN_BYTES_PER_LANE, SCAN_TILE
     from jasper_tpu_torch.pipeline import cli
-    from jasper_tpu_torch.table import probe
     from jasper_tpu_torch.table.layout import PAD_BUCKETS
 
     budget = slices_budget(table_bytes // 256 - PAD_BUCKETS, 4)
@@ -1532,7 +1520,7 @@ def phase_partitioned_driver(asm: str, jf: str, run_dir: str, genome: bytes,
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    probe.LAUNCHES = probe.RANGED_LAUNCHES = 0
+    since = trace.counters()
     os.environ["JASPER_TPU_HBM_BUDGET"] = str(budget)
     t0 = time.perf_counter()
     try:
@@ -1541,7 +1529,7 @@ def phase_partitioned_driver(asm: str, jf: str, run_dir: str, genome: bytes,
     finally:
         del os.environ["JASPER_TPU_HBM_BUDGET"]
     wall = time.perf_counter() - t0
-    ranged, unranged = probe.RANGED_LAUNCHES, probe.LAUNCHES
+    ranged, unranged = launched(since, "k1.ranged_launches"), launched(since, "k1.launches")
     peak = torch.cuda.max_memory_allocated(device) - base
     scanner = res["scanner"]
     limit = table_bytes + SCAN_TILE * SCAN_BYTES_PER_LANE
@@ -1628,7 +1616,7 @@ def insert_bound(n: int, W: int, placed: int, round_lanes: int, secs: float) -> 
     count add or the claim's scatter-min, its read-back and its reset),
     and each placed record's W + 1 words written, at HBM_BYTES_PER_S;
     ``round_lanes`` is the pending lanes summed over the rounds
-    (kmer_table.ROUND_LANES)."""
+    (the trace counter k8.round_lanes)."""
     nbytes = n * 4 * (W + 1) + round_lanes * (256 + 12) + placed * 4 * (W + 1)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"round_lanes": round_lanes, "bound_bytes": nbytes, "bound_ms": bound_ms,
@@ -1647,7 +1635,7 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
     import torch
 
     from jasper_tpu_torch.ops.hashing import mix32
-    from jasper_tpu_torch.table import build, kmer_table
+    from jasper_tpu_torch.table import build
     from jasper_tpu_torch.table.kmer_table import empty_table, table_from_numpy
     from jasper_tpu_torch.table.layout import FAST_LOAD, slots_for
 
@@ -1672,14 +1660,14 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
            "table_bytes": int(host.tab.nbytes)}
     del tab5, h
     tab = torch.zeros(host.tab.shape, dtype=torch.int32, device=device)
-    kmer_table.ROUND_LANES = 0
+    since = trace.counters()
     pending, placed, rounds, secs = _insert_batches(tab, keys, counts, batch, rng)
     if pending or placed != N:
         raise AssertionError(f"insert: {pending} pending, {placed} placed of {N}")
     _check_lookups(tab, keys, counts, "race20 insert")
     out.update(insert_s=secs, rounds_per_batch=rounds,
                insert_records_per_s=N / secs,
-               **insert_bound(N, host.W, placed, kmer_table.ROUND_LANES, secs))
+               **insert_bound(N, host.W, placed, launched(since, "k8.round_lanes"), secs))
     del tab, keys, counts
     torch.cuda.empty_cache()
 
@@ -1687,14 +1675,14 @@ def phase_insert(host, rng, device, card: str, records_gate: int | None,
     keys37 = to_dev(distinct_keys(rng, 37, n37, salt=37))
     counts37 = to_dev(rng.integers(1, 1 << 16, size=n37).astype(np.uint32))
     tab = empty_table(37, slots_for(n37, FAST_LOAD), device)
-    kmer_table.ROUND_LANES = 0
+    since = trace.counters()
     pending, placed, rounds, secs = _insert_batches(tab, keys37, counts37, batch, rng)
     if pending or placed != n37:
         raise AssertionError(f"k=37 insert: {pending} pending, {placed} placed of {n37}")
     _check_lookups(tab, keys37, counts37, "k=37 insert")
     out["k37"] = {"records": n37, "table_bytes": int(tab.numel() * 4), "insert_s": secs,
                   "rounds_per_batch": rounds, "insert_records_per_s": n37 / secs,
-                  **insert_bound(n37, 3, placed, kmer_table.ROUND_LANES, secs)}
+                  **insert_bound(n37, 3, placed, launched(since, "k8.round_lanes"), secs)}
     out["card"] = card
     del tab, keys37, counts37
     torch.cuda.empty_cache()
@@ -1726,9 +1714,9 @@ def phase_partitioned_big(scanner, draft: bytes, device, card: str, k: int = 25)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     part = PartitionedDeviceScanner(host, k, slices_budget(host.n_buckets, 4), device)
-    reset_k23()
+    since = trace.counters()
     got = part.prepare_all(seqs, 5)["draft"]
-    k23 = k23_launches("race100 partitioned scan", k2=False)
+    k23 = k23_launches("race100 partitioned scan", since, k2=False)
     peak = torch.cuda.max_memory_allocated(device) - base
     if part.P != 4:
         raise AssertionError(f"race100 partitioned: P={part.P}")
@@ -2154,7 +2142,7 @@ def phase_runs(device, card: str, seed: int) -> dict:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    before = (sr.MERGE_LAUNCHES, sr.RUNS_LAUNCHES, sr.COMPACT_LAUNCHES)
+    since = trace.counters()
     t0 = time.perf_counter()
     merges = [merge_case(W, side, side, ov, gen, device, card)
               for W in (2, 3) for side in K4_SIDES for ov in (0.0, 0.5, 1.0)]
@@ -2171,9 +2159,9 @@ def phase_runs(device, card: str, seed: int) -> dict:
     totals = [totals_case(W, B, gen, device, card)
               for W, B in ((2, K4_STAGES[0]), (2, K4_STAGES[1]), (3, K4_STAGES[0]))]
     totals.append(totals_case(2, K4_STAGES[0], gen, device, card, straddle=True))
-    moved = {"merge_launches": sr.MERGE_LAUNCHES - before[0],
-             "runs_launches": sr.RUNS_LAUNCHES - before[1],
-             "compact_launches": sr.COMPACT_LAUNCHES - before[2]}
+    moved = {"merge_launches": launched(since, "k4m.launches"),
+             "runs_launches": launched(since, "k4f.launches"),
+             "compact_launches": launched(since, "k4f.compact_launches")}
     if not all(v > 0 for v in moved.values()):
         raise AssertionError(f"phase 18: the launch counters did not move: {moved}")
     if not any(r["saturated"] for r in merges):
@@ -2348,7 +2336,6 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
 
     from jasper_tpu_torch.io.jf import read_jf
     from jasper_tpu_torch.pipeline import jf_cli
-    from jasper_tpu_torch.table import probe
 
     wd = os.path.join(os.path.dirname(reads), "jf")
     os.makedirs(wd, exist_ok=True)
@@ -2369,7 +2356,7 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
     # 1. the whole race20 count, against phase 6's .jf
     race_jf = os.path.join(wd, "race20.jf")
     size = os.path.getsize(reads) // 10
-    probe.LAUNCHES = 0
+    since = trace.counters()
     torch.cuda.reset_peak_memory_stats(device)
     timing = count("race20", "-s", str(size), "-C", "-o", race_jf)
     peak = torch.cuda.max_memory_allocated(device)
@@ -2382,7 +2369,7 @@ def phase_jellyfish(reads: str, driver_jf: str, device, card: str,
     del _keys
     out = {"race20_records": records, "race20_counting_s": timing["Counting"],
            "race20_writing_s": timing["Writing"], "race20_peak_device_bytes": peak,
-           "probe_launches": probe.LAUNCHES}
+           "probe_launches": launched(since, "k1.launches")}
 
     # 2. the forward, --disk, --if and bloom-filtered routes on the head
     head = reads_head(reads, JF_HEAD_READS)
@@ -2490,7 +2477,6 @@ def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -
     )
     from jasper_tpu_torch.parallel.sharded_table import _owner, _owner_bits, make_mesh
     from jasper_tpu_torch.polish.device_engine import DeviceScanner
-    from jasper_tpu_torch.table import probe
     from jasper_tpu_torch.table.probe import to_i32_bits
 
     seq = draft.decode()
@@ -2502,17 +2488,18 @@ def phase_sharded(host, draft: bytes, rep_tab, device, card: str, k: int = 25) -
     scanner = ShardedDeviceScanner(host, k, mesh, tile=SCAN_TILE)
     torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
-    probe.LAUNCHES = probe.OWNER_LAUNCHES = 0
+    since = trace.counters()
     got = scanner.prepare_all({"draft": seq}, 5)["draft"]
-    owner_launches, plain_launches = probe.OWNER_LAUNCHES, probe.LAUNCHES
+    owner_launches = launched(since, "k1.owner_launches")
+    plain_launches = launched(since, "k1.launches")
     peak = torch.cuda.max_memory_allocated(device) - base
     rep = DeviceScanner(rep_tab, k)
     want = rep.prepare(seq, 5)
     # K12: the replicated scan data-parallel over 2 data shards of the card
     dp = DeviceScanner(rep_tab, k, mesh=local_data_mesh(devices=[device] * 2))
-    probe.LAUNCHES = 0
+    since = trace.counters()
     dp_got = dp.prepare(seq, 5)
-    dp_launches = probe.LAUNCHES
+    dp_launches = launched(since, "k1.launches")
     for a in ("counts", "valid", "unsafe"):
         if not np.array_equal(getattr(got, a), getattr(want, a)):
             raise AssertionError(f"sharded scan {a} != replicated scan's")
@@ -2607,16 +2594,15 @@ def phase_mesh_count(reads: str, scan_tab, records_gate, count6_s: float, device
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     logs = []
-    reset_k4()
-    reset_k23()
+    since = trace.counters()
     t0 = time.perf_counter()
     host, rkeys, _rcounts, dev_tab = count_reads_to_host(
         [reads], k, device, hash_size_hint=max(os.path.getsize(reads) // 10, 1024),
         tlog=logs.append, mesh=mesh, return_device_table=True)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    k4 = k4_launches("mesh count")
-    k23 = k23_launches("mesh count")
+    k4 = k4_launches("mesh count", since)
+    k23 = k23_launches("mesh count", since)
     peak = torch.cuda.max_memory_allocated(device) - base
     if records_gate is not None and len(rkeys) != records_gate:
         raise AssertionError(f"mesh count: {len(rkeys)} records != {records_gate}")
@@ -2758,8 +2744,7 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
         torch.cuda.reset_peak_memory_stats(device)
         logs: list = []
         os.environ.update(env or {})
-        reset_k4()
-        reset_k23()
+        since = trace.counters()
         t0 = time.perf_counter()
         try:
             with patched(peaks.wraps() if peaks is not None else []):
@@ -2770,8 +2755,8 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
             for var in env or {}:
                 del os.environ[var]
         wall = time.perf_counter() - t0
-        k4 = k4_launches(f"phase 19 {name}", gate=gate)
-        k23 = k23_launches(f"phase 19 {name}", filtered=filtered)
+        k4 = k4_launches(f"phase 19 {name}", since, gate=gate)
+        k23 = k23_launches(f"phase 19 {name}", since, filtered=filtered)
         for key in launches:
             launches[key] += k4[key]
         if line is not None and not any(m.startswith(line) for m in logs):
@@ -2870,10 +2855,10 @@ def phase_surface(reads: str, scan_tab, records_gate, count6_steps: list, device
     build_s = time.perf_counter() - t0
     keys = to_i32_bits(run[1])
     valid = torch.ones(n_owner, dtype=torch.bool, device=device)
-    probe.OWNER_LAUNCHES = 0
+    since = trace.counters()
     got = probe.lookup_kmers(tab, keys, valid, owner_bits=2)
     torch.cuda.synchronize(device)
-    owner_launches = probe.OWNER_LAUNCHES
+    owner_launches = launched(since, "k1.owner_launches")
     if owner_launches <= 0:
         raise AssertionError("the owner-bits lookup did not launch K1")
     if not torch.equal(got.to(torch.int64) & M32, run[2]):
@@ -3216,7 +3201,7 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
 
     from jasper_tpu_torch.count.sorted_runs import extract_windows
     from jasper_tpu_torch.io.fastx import stream_codes
-    from jasper_tpu_torch.ops import hashing, kmer
+    from jasper_tpu_torch.ops import kmer
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 20)
@@ -3234,7 +3219,7 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
     draft = read_fasta_one(asm)
     floor = k3_floor_fn()
     T = kmer_tile()
-    before = (kmer.LAUNCHES, kmer.FILTER_LAUNCHES, hashing.LAUNCHES)
+    since = trace.counters()
     k3 = []
     for k in K3_KS:
         # lengths about the kernel's tile borders: one tile of windows less
@@ -3268,9 +3253,9 @@ def phase_kmer(reads: str, asm: str, device, card: str, seed: int) -> dict:
             k2.append(k2_case(torch.where(words >= 1 << 31, words - (1 << 32), words)
                               .to(torch.int32), f"{B} lanes int32"))
             del words
-    moved = {"k3_launches": kmer.LAUNCHES - before[0],
-             "k3_filter_launches": kmer.FILTER_LAUNCHES - before[1],
-             "k2_launches": hashing.LAUNCHES - before[2]}
+    moved = {"k3_launches": launched(since, "k3.launches"),
+             "k3_filter_launches": launched(since, "k3.filter_launches"),
+             "k2_launches": launched(since, "k2.launches")}
     if min(moved.values()) <= 0:
         raise AssertionError(f"phase 20: a launch count did not move: {moved}")
 
@@ -3362,12 +3347,12 @@ def k23_rows(kmer_phase: dict, drivers: list) -> list[dict]:
 TWO_PROCESS = """
 import json, sys
 from jasper_tpu_torch.pipeline.driver import run_pipeline
-from jasper_tpu_torch.table import probe
+from jasper_tpu_torch.utils import trace
 res = run_pipeline(**json.loads(sys.argv[1]))
 print("RESULT " + json.dumps({"process": res["process"], "q_before": res["q_before"],
                               "q_after": res["q_after"],
                               "scanner": res["scanner"] is not None,
-                              "probe_launches": probe.LAUNCHES}), flush=True)
+                              "probe_launches": trace.counter("k1.launches")}), flush=True)
 mods = sorted(m for m in sys.modules if m == "jasper_tpu" or m.startswith("jasper_tpu."))
 assert not mods, mods
 """
@@ -3523,20 +3508,17 @@ def phase_k37(asm: str, reads: str, genome: bytes, errors, device, card: str,
     from jasper_tpu_torch.pipeline.driver import join_fix_csvs, join_polished
     from jasper_tpu_torch.polish.engine import PolishEngine
     from jasper_tpu_torch.polish.runner import polish_file
-    from jasper_tpu_torch.table import probe
 
     wd = os.path.join(os.path.dirname(reads), "run37")
-    probe.LAUNCHES = 0
-    reset_k4()
-    reset_k23()
+    since = trace.counters()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     res = cli.run(["-a", asm, "-r", reads, "-k", str(k), "-p", "2", "-t", "1",
                    "-b", "25000000", "-d", "--workdir", wd, "--device", str(device)])
     wall = time.perf_counter() - t0
-    launches = probe.LAUNCHES
-    k4 = k4_launches("k=37 driver path", gate=False)
-    k23 = k23_launches("k=37 driver path")
+    launches = launched(since, "k1.launches")
+    k4 = k4_launches("k=37 driver path", since, gate=False)
+    k23 = k23_launches("k=37 driver path", since)
     peak = torch.cuda.max_memory_allocated(device)
     if launches <= 0:
         raise AssertionError("the k=37 driver path never launched the probe kernel")

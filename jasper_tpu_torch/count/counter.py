@@ -81,6 +81,7 @@ from jasper_tpu_torch.table.layout import (
     slots_for,
 )
 from jasper_tpu_torch.table.probe import to_i32_bits
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import available_bytes
 
 # Device bytes a resident lane costs at the peak of counting, in lanes of
@@ -171,10 +172,12 @@ class IngestStats:
                 f"(each with the wait for the device work queued before it)")
 
     def upload(self, codes: np.ndarray, device) -> torch.Tensor:
-        """A code chunk on ``device`` (a pageable copy), its seconds counted."""
-        t0 = time.perf_counter()
-        out = torch.from_numpy(codes).to(device)
-        self.codes_copy_s += time.perf_counter() - t0
+        """A code chunk on ``device`` (a pageable copy), its seconds counted;
+        the span ``ingest.upload``."""
+        with trace.span("ingest.upload"):
+            t0 = time.perf_counter()
+            out = torch.from_numpy(codes).to(device)
+            self.codes_copy_s += time.perf_counter() - t0
         self.chunks += 1
         return out
 
@@ -184,7 +187,10 @@ def _prefetch(it, ingest: IngestStats, depth: int = 3):
     FASTQ parsing overlaps device counting. stream_codes allocates a fresh
     buffer per yielded chunk, so queued chunks are never mutated.
     Exceptions re-raise at the consumer. The seconds blocked on the queue
-    go to ``ingest``."""
+    go to ``ingest``. Spans: ``ingest.parse`` for each item the worker
+    produces (with its thread CPU seconds) and ``ingest.put_wait`` while it
+    is blocked on a full queue, both under the span open here when the
+    worker starts; ``ingest.wait`` while the consumer is blocked."""
     import queue
     import threading
 
@@ -195,20 +201,27 @@ def _prefetch(it, ingest: IngestStats, depth: int = 3):
         def __init__(self, exc):
             self.exc = exc
 
-    def worker():
+    def worker(parent):
         try:
-            for item in it:
-                q.put(item)
+            while True:
+                with trace.span("ingest.parse", parent=parent, cpu=True):
+                    item = next(it, DONE)
+                if item is DONE:
+                    break
+                with trace.span("ingest.put_wait", parent=parent):
+                    q.put(item)
             q.put(DONE)
         except BaseException as e:  # noqa: BLE001 - propagated to consumer
             q.put(_Raised(e))
 
-    t = threading.Thread(target=worker, name="ingest-prefetch", daemon=True)
+    t = threading.Thread(target=worker, args=(trace.current(),), name="ingest-prefetch",
+                         daemon=True)
     t.start()
     while True:
-        t0 = time.perf_counter()
-        item = q.get()
-        ingest.queue_wait_s += time.perf_counter() - t0
+        with trace.span("ingest.wait"):
+            t0 = time.perf_counter()
+            item = q.get()
+            ingest.queue_wait_s += time.perf_counter() - t0
         if item is DONE:
             break
         if isinstance(item, _Raised):
@@ -324,27 +337,28 @@ def count_reads(paths: Iterable, k: int, device, n_slots: int | None = None,
             unit=max(1 << 14, n_windows // 8), stage_lanes=8 * n_windows)
         n_chunks = 0
         for codes, fill in chunks:
-            if codes_sink is not None:
-                codes_sink.append((codes, fill))
-            if on_full is not None and acc.n_resident_lanes() > n_slots:
-                on_full(_finish_to_table(acc, k, device))
-                # jasper_tpu's fresh ladder takes its default stage, 8 units
-                acc = RunAccumulator(unit=acc.unit, stage_lanes=8 * acc.unit)
-            if on_full_run is not None and acc.n_settled_lanes() > n_slots:
-                on_full_run(acc)
-                if accumulator is None:
-                    acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
-            if key_filter is None:
-                acc.push_raw(*extract_windows(ingest.upload(codes, device), k,
-                                              canonical=canonical, partition=partition))
-            else:
-                ukeys, mult = _unique_chunk_keys(codes, k, canonical)
-                mult = np.asarray(key_filter(ukeys, mult), dtype=np.uint32)
-                keep = mult > 0
-                acc.push(*run_from_keys(ukeys[keep], mult[keep], device))
-            n_chunks += 1
-            if progress is not None:
-                progress(n_chunks, acc.n_resident_lanes())
+            with trace.span("count.chunk"):
+                if codes_sink is not None:
+                    codes_sink.append((codes, fill))
+                if on_full is not None and acc.n_resident_lanes() > n_slots:
+                    on_full(_finish_to_table(acc, k, device))
+                    # jasper_tpu's fresh ladder takes its default stage, 8 units
+                    acc = RunAccumulator(unit=acc.unit, stage_lanes=8 * acc.unit)
+                if on_full_run is not None and acc.n_settled_lanes() > n_slots:
+                    on_full_run(acc)
+                    if accumulator is None:
+                        acc = RunAccumulator(unit=acc.unit, stage_lanes=acc.stage_lanes)
+                if key_filter is None:
+                    acc.push_raw(*extract_windows(ingest.upload(codes, device), k,
+                                                  canonical=canonical, partition=partition))
+                else:
+                    ukeys, mult = _unique_chunk_keys(codes, k, canonical)
+                    mult = np.asarray(key_filter(ukeys, mult), dtype=np.uint32)
+                    keep = mult > 0
+                    acc.push(*run_from_keys(ukeys[keep], mult[keep], device))
+                n_chunks += 1
+                if progress is not None:
+                    progress(n_chunks, acc.n_resident_lanes())
     if return_acc:
         return acc
     return _finish_to_table(acc, k, device, return_run)
@@ -366,27 +380,28 @@ def _count_reads_mesh(chunks, k: int, device, chunk_len: int, mesh, canonical: b
     group: list[np.ndarray] = []
     n_chunks = 0
     for codes, fill in chunks:
-        if codes_sink is not None:
-            codes_sink.append((codes, fill))
-        if on_full is not None and acc.n_resident_lanes() > n_slots:
-            if group:
+        with trace.span("count.chunk"):
+            if codes_sink is not None:
+                codes_sink.append((codes, fill))
+            if on_full is not None and acc.n_resident_lanes() > n_slots:
+                if group:
+                    push_group(acc, group, chunk_len, k, extract)
+                    group = []
+                on_full(_finish_to_table(acc, k, device))
+                acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
+            if on_full_run is not None and acc.n_settled_lanes() > n_slots:
+                if group:
+                    push_group(acc, group, chunk_len, k, extract)
+                    group = []
+                on_full_run(acc)
+                acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
+            group.append(codes)
+            n_chunks += 1
+            if len(group) == acc.D:
                 push_group(acc, group, chunk_len, k, extract)
                 group = []
-            on_full(_finish_to_table(acc, k, device))
-            acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
-        if on_full_run is not None and acc.n_settled_lanes() > n_slots:
-            if group:
-                push_group(acc, group, chunk_len, k, extract)
-                group = []
-            on_full_run(acc)
-            acc = MeshRunAccumulator(mesh, unit=acc.unit, stage_lanes=acc.stage_lanes)
-        group.append(codes)
-        n_chunks += 1
-        if len(group) == acc.D:
-            push_group(acc, group, chunk_len, k, extract)
-            group = []
-        if progress is not None:
-            progress(n_chunks, acc.n_resident_lanes())
+            if progress is not None:
+                progress(n_chunks, acc.n_resident_lanes())
     if group:
         push_group(acc, group, chunk_len, k, extract)
     return acc
@@ -404,9 +419,11 @@ def _finish_to_table(acc: RunAccumulator, k: int, device, return_run: bool = Fal
 def pull_run_records(run):
     """Device run -> host (h, keys, counts), uint32 [N], [N, W], [N]: the
     first n_active lanes, in run order — sorted by (mix32(key), key), the
-    precondition of HostKmerTable.from_sorted_run."""
+    precondition of HostKmerTable.from_sorted_run. The span
+    ``count.finish.pull``."""
     h, keys, counts, n = run
-    return run_to_numpy(h[:n], keys[:n], counts[:n])
+    with trace.span("count.finish.pull"):
+        return run_to_numpy(h[:n], keys[:n], counts[:n])
 
 
 def count_sequences(seqs: Iterable[str], k: int, device, n_slots: int = 1 << 16):
@@ -509,10 +526,11 @@ def merge_host_streams(streams):
 
 
 def finish_runs_to_host(acc, extra_streams=()):
-    """Pull every level of ``acc`` and merge them on the host with
-    ``extra_streams`` (the evicted ones): (h, keys, counts) in (h, key)
-    order, or None when nothing was counted."""
-    streams = list(extra_streams) + pull_all_levels(acc)
+    """Pull every level of ``acc`` (the span ``count.finish.pull``) and
+    merge them on the host with ``extra_streams`` (the evicted ones): (h,
+    keys, counts) in (h, key) order, or None when nothing was counted."""
+    with trace.span("count.finish.pull"):
+        streams = list(extra_streams) + pull_all_levels(acc)
     return merge_host_streams(streams) if streams else None
 
 
@@ -549,10 +567,16 @@ def _device_table_from_host_run(rh, rkeys, rcounts, k: int, device):
     return build_table((*run, N), k)
 
 
+def _host_table(k: int, rkeys, rcounts, rh) -> HostKmerTable:
+    """HostKmerTable.from_sorted_run, in the span ``count.finish.host_table``."""
+    with trace.span("count.finish.host_table"):
+        return HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
+
+
 def _host_result(rh, rkeys, rcounts, k: int, device, _log, return_device_table: bool):
     """Merged host records -> (host table, keys, counts), and the device
     table built from them when ``return_device_table``."""
-    host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
+    host_table = _host_table(k, rkeys, rcounts, rh)
     _log("count: host table built")
     if not return_device_table:
         return host_table, rkeys, rcounts
@@ -569,17 +593,19 @@ def _host_result(rh, rkeys, rcounts, k: int, device, _log, return_device_table: 
 def _host_finish_from_parts(parts, k: int, device, _log, return_device_table: bool):
     """Per-partition host streams, each in (h, key) order, concatenated in
     partition order (the top hash bits, so the whole is in (h, key) order)
-    -> the counting result."""
-    if not parts:
-        return _empty_result(k, return_device_table)
-    rh = np.concatenate([p[0] for p in parts])
-    rkeys = np.concatenate([p[1] for p in parts], axis=0)
-    rcounts = np.concatenate([p[2] for p in parts])
-    del parts
-    _log(f"count: partitioned finish done ({len(rkeys)} records)")
-    return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
+    -> the counting result, in the span ``count.finish``."""
+    with trace.span("count.finish"):
+        if not parts:
+            return _empty_result(k, return_device_table)
+        rh = np.concatenate([p[0] for p in parts])
+        rkeys = np.concatenate([p[1] for p in parts], axis=0)
+        rcounts = np.concatenate([p[2] for p in parts])
+        del parts
+        _log(f"count: partitioned finish done ({len(rkeys)} records)")
+        return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
 
 
+@trace.traced("count")
 def count_reads_to_host(paths: Iterable[str], k: int, device,
                         hash_size_hint: int | None = None, mesh=None,
                         chunk_len: int = 1 << 23, canonical: bool = True,
@@ -612,7 +638,11 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
     P-pass filter over the mesh instead (jasper_tpu's routing).
 
     ingest: an IngestStats that every pass over the reads adds its ingest
-    seconds to (count_reads)."""
+    seconds to (count_reads).
+
+    A job's root span ``count`` (under any span open), with ``count.chunk``
+    per code chunk, the ingest's spans and ``count.finish`` (its children
+    ``count.finish.pull`` and ``count.finish.host_table``) below it."""
     paths = list(paths)
     device = torch.device(device)
 
@@ -688,30 +718,31 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
                       return_acc=True, **pass_kw)
     resident = acc.n_resident_lanes()
     _log(f"count: device counting done ({resident} resident lanes)")
-    _materialize_pending()
-    if evicted or resident > budget:
-        merged = finish_runs_to_host(acc, extra_streams=evicted)
-        if merged is None:
-            return _empty_result(k, return_device_table)
-        rh, rkeys, rcounts = merged
-        _log(f"count: host-merge finish done ({len(rkeys)} records)")
-        return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
+    with trace.span("count.finish"):
+        _materialize_pending()
+        if evicted or resident > budget:
+            merged = finish_runs_to_host(acc, extra_streams=evicted)
+            if merged is None:
+                return _empty_result(k, return_device_table)
+            rh, rkeys, rcounts = merged
+            _log(f"count: host-merge finish done ({len(rkeys)} records)")
+            return _host_result(rh, rkeys, rcounts, k, device, _log, return_device_table)
 
-    if return_device_table:
-        dev_tab, run = _finish_to_table(acc, k, device, return_run=True)
-    else:
-        run = acc.finish()  # the run alone: no table is built on the device
-    if run is None:
-        return _empty_result(k, return_device_table)
-    if return_device_table:
-        _log("count: device scan table built")
-    rh, rkeys, rcounts = pull_run_records(run)
-    del run
-    _log(f"count: run pull done ({len(rkeys)} records)")
-    host_table = HostKmerTable.from_sorted_run(k, rkeys, rcounts, h=rh)
-    _log("count: host table built")
-    out = (host_table, rkeys, rcounts)
-    return out + (dev_tab,) if return_device_table else out
+        if return_device_table:
+            dev_tab, run = _finish_to_table(acc, k, device, return_run=True)
+        else:
+            run = acc.finish()  # the run alone: no table is built on the device
+        if run is None:
+            return _empty_result(k, return_device_table)
+        if return_device_table:
+            _log("count: device scan table built")
+        rh, rkeys, rcounts = pull_run_records(run)
+        del run
+        _log(f"count: run pull done ({len(rkeys)} records)")
+        host_table = _host_table(k, rkeys, rcounts, rh)
+        _log("count: host table built")
+        out = (host_table, rkeys, rcounts)
+        return out + (dev_tab,) if return_device_table else out
 
 
 def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,

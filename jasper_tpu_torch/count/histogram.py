@@ -8,6 +8,8 @@ jasper_tpu's reads jasper_tpu/table/kmer_table.py:376), and
 ``histogram_rows_host`` the same column block of a host table.
 Rows are what `jellyfish histo` prints: nonzero (bin, frequency) with
 low=1, high=10000, inc=1 and every count above high in bin 10001.
+``histogram_rows``, ``histogram_rows_from_counts`` and ``write_histogram``
+each open the span ``count.histogram``.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import torch
 from jasper_tpu_torch.ops.kmer import words_per_kmer
 from jasper_tpu_torch.table.kmer_table import table_histogram
 from jasper_tpu_torch.table.layout import ROW_U32, slot_words_for
+from jasper_tpu_torch.utils import trace
 
 HISTO_HIGH = 10000
 
 
+@trace.traced("count.histogram")
 def histogram_rows(tab: torch.Tensor, k: int, high: int = HISTO_HIGH
                    ) -> list[tuple[int, int]]:
     """Nonzero (col, freq) rows of the table's occupied slots: the
@@ -40,6 +44,7 @@ def histogram_rows_host(tab: np.ndarray, k: int, high: int = HISTO_HIGH
     return histogram_rows_from_counts(tab[:, W * S : (W + 1) * S], high)
 
 
+@trace.traced("count.histogram")
 def histogram_rows_from_counts(counts, high: int = HISTO_HIGH) -> list[tuple[int, int]]:
     """Nonzero (col, freq) rows from a host count array; the same rows as
     histogram_rows of a table holding these records."""
@@ -51,6 +56,7 @@ def histogram_rows_from_counts(counts, high: int = HISTO_HIGH) -> list[tuple[int
             for col in range(1, high + 2) if hist[col] > 0]
 
 
+@trace.traced("count.histogram")
 def write_histogram(path: str, rows) -> None:
     with open(path, "w") as f:
         for col, freq in rows:

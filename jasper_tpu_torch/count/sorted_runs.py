@@ -50,16 +50,10 @@ import torch
 
 from jasper_tpu_torch.ops.hashing import M32, mix32
 from jasper_tpu_torch.ops.kmer import windows_cuda, windows_plain
+from jasper_tpu_torch.utils import trace
 
 U32_MAX = M32
 _HALF = 1 << 31
-
-# kernel launches since the last reset (the main-path proof in
-# chip_smoke.py): K4m merges, K4f's run totals of sorted windows, and K4f's
-# compaction of a run whose counts are given
-MERGE_LAUNCHES = 0
-RUNS_LAUNCHES = 0
-COMPACT_LAUNCHES = 0
 
 
 def _key_cols(keys) -> list[torch.Tensor]:
@@ -331,8 +325,8 @@ def _active_count(n, lanes: int, device) -> torch.Tensor:
 
 def merge_runs_cuda(ha, ka, ca, hb, kb, cb, n_a, n_b):
     """Launch K4m on the current stream: runs a and b, compacted, with
-    n_a and n_b actives (ints or 0-d tensors on the card)."""
-    global MERGE_LAUNCHES
+    n_a and n_b actives (ints or 0-d tensors on the card). Counted in
+    ``k4m.launches`` and ``k4m.lanes`` (both runs' lanes)."""
     dev = _check_cuda("merge_runs_cuda", [
         ("ha", ha, _I64), ("ka", ka, _I64), ("ca", ca, _I64),
         ("hb", hb, _I64), ("kb", kb, _I64), ("cb", cb, _I64)])
@@ -347,13 +341,14 @@ def merge_runs_cuda(ha, ka, ca, hb, kb, cb, n_a, n_b):
         return out[:3] + (out[3].zero_(),)
     _launch("jt_merge_runs", L, dev, *_ptrs(ha, ka, ca, hb, kb, cb, na, nb),
             ha.shape[0], L, *_ptrs(*out), W)
-    MERGE_LAUNCHES += 1
+    trace.add("k4m.launches")
+    trace.add("k4m.lanes", L)
     return out
 
 
 def run_totals_cuda(h, keys, valid, perm, compact: bool):
-    """Launch K4f's multiplicity-1 mode on the current stream."""
-    global RUNS_LAUNCHES
+    """Launch K4f's multiplicity-1 mode on the current stream; counted in
+    ``k4f.launches``."""
     dev = _check_cuda("run_totals_cuda", [
         ("h", h, _I64), ("keys", keys, _I64),
         ("valid", valid, (torch.bool, torch.uint8)), ("perm", perm, _I64)])
@@ -364,15 +359,15 @@ def run_totals_cuda(h, keys, valid, perm, compact: bool):
         # h is not read: the kernel recomputes it from the gathered keys
         _launch("jt_run_totals", B, dev, *_ptrs(keys, valid, perm), B,
                 *_ptrs(*out), int(compact), W)
-        RUNS_LAUNCHES += 1
+        trace.add("k4f.launches")
     else:
         out[3].zero_()
     return out if compact else out[:3]
 
 
 def compact_run_cuda(h, keys, counts):
-    """Launch K4f's counts-given mode (_compact) on the current stream."""
-    global COMPACT_LAUNCHES
+    """Launch K4f's counts-given mode (_compact) on the current stream;
+    counted in ``k4f.compact_launches``."""
     dev = _check_cuda("compact_run_cuda", [
         ("h", h, _I64), ("keys", keys, _I64), ("counts", counts, _I64)])
     W = _check_lanes("compact_run_cuda", h, keys, counts)
@@ -381,7 +376,7 @@ def compact_run_cuda(h, keys, counts):
     if B == 0:
         return out[:3] + (out[3].zero_(),)
     _launch("jt_compact_run", B, dev, *_ptrs(h, keys, counts), B, *_ptrs(*out), W)
-    COMPACT_LAUNCHES += 1
+    trace.add("k4f.compact_launches")
     return out
 
 

@@ -23,14 +23,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from jasper_tpu_torch.utils import trace
+
 M32 = 0xFFFFFFFF
 _C1 = 0xCC9E2D51
 _C2 = 0x1B873593
 _SEED = 0x6A737072  # "jspr"
-
-# K2 kernel launches since the last reset (the main-path proof in
-# chip_smoke.py)
-LAUNCHES = 0
 
 
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -73,8 +71,7 @@ def mix32_cuda(words: torch.Tensor) -> torch.Tensor:
     """Launch K2 (csrc/kmer.cu:jt_mix32) on the current stream (no
     synchronise): words int64 (values' low 32 bits) or int32 (bit
     patterns) [..., W], 1 <= W <= 4, contiguous, on a CUDA device ->
-    int64 [...] in [0, 2^32)."""
-    global LAUNCHES
+    int64 [...] in [0, 2^32). Counted in ``k2.launches``."""
     if words.device.type != "cuda":
         raise ValueError(f"mix32_cuda: words are on {words.device}, not a CUDA device")
     if words.dtype not in (torch.int64, torch.int32):
@@ -96,7 +93,7 @@ def mix32_cuda(words: torch.Tensor) -> torch.Tensor:
                       out.data_ptr(), words.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError("jt_mix32 launch failed: " + lib.jt_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    trace.add("k2.launches")
     return out
 
 

@@ -40,11 +40,7 @@ import torch
 
 from jasper_tpu_torch.ops.codes import CODE_T
 from jasper_tpu_torch.ops.hashing import M32, mix32_plain
-
-# K3 kernel launches since the last reset (the main-path proof in
-# chip_smoke.py): every launch, and those that fused a partition filter
-LAUNCHES = 0
-FILTER_LAUNCHES = 0
+from jasper_tpu_torch.utils import trace
 
 
 def words_per_kmer(k: int) -> int:
@@ -214,8 +210,9 @@ def windows_cuda(codes: torch.Tensor, k: int, canonical: bool, pad16: bool = Fal
     forward keys as _windows_plain gives them. n_out = L-k+1 (0 when L <
     k), or with ``pad16`` 16 * ceil(n / 16), the pad lanes zero and
     invalid. ``partition`` = (p, P) also clears the valid flag of every
-    window whose mix32 hash is outside the p-th of P top-bit ranges."""
-    global LAUNCHES, FILTER_LAUNCHES
+    window whose mix32 hash is outside the p-th of P top-bit ranges.
+    Counted in ``k3.launches``, ``k3.lanes`` (n_out) and, with a filter,
+    ``k3.filter_launches``."""
     bits, p = partition_bits(partition) if partition is not None else (0, 0)
     if codes.device.type != "cuda":
         raise ValueError(f"windows_cuda: codes are on {codes.device}, not a CUDA device")
@@ -243,9 +240,10 @@ def windows_cuda(codes: torch.Tensor, k: int, canonical: bool, pad16: bool = Fal
     if rc != 0:
         raise RuntimeError("jt_windows launch failed: "
                            + lib.jt_cuda_error_string(rc).decode())
-    LAUNCHES += 1
+    trace.add("k3.launches")
+    trace.add("k3.lanes", n_out)
     if bits:
-        FILTER_LAUNCHES += 1
+        trace.add("k3.filter_launches")
     return keys, valid
 
 

@@ -51,6 +51,7 @@ from jasper_tpu_torch.polish.device_engine import ContigScan, DeviceScanner
 from jasper_tpu_torch.polish.window import classify_tiled, scan_counts
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
 from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import available_bytes
 
 SCAN_TILE = 1 << 22  # windows per device scan call
@@ -219,7 +220,8 @@ class ShardedDeviceScanner:
     classification every scanner shares (classify_tiled).
     Sub-tables are sized for a uniform shard at load 0.6 (jasper_tpu's
     local_slots), so their bytes equal jasper_tpu's. ``seconds``
-    accumulates the wall time of prepare()."""
+    accumulates the wall time of prepare(), each call a span
+    ``scan.prepare``."""
 
     regime = "sharded"
 
@@ -247,6 +249,7 @@ class ShardedDeviceScanner:
         self.scanned_lanes = 0
         self.seconds = 0.0
 
+    @trace.traced("scan.prepare")
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:
         t0 = time.perf_counter()
         k, tile, D = self.k, self.tile, self.d_total
@@ -310,8 +313,9 @@ class PartitionedDeviceScanner:
     come from ``budget`` by jasper_tpu's formula (scanner.py:192-197), so
     one budget gives the same P on both sides.
 
-    ``pushes``, ``push_bytes`` and ``push_seconds`` count the slice pushes;
-    ``seconds`` accumulates the wall time of prepare_all."""
+    ``pushes``, ``push_bytes`` and ``push_seconds`` count the slice pushes,
+    each a span ``scan.push``; ``seconds`` accumulates the wall time of
+    prepare_all, each call a span ``scan.prepare``."""
 
     regime = "partitioned"
 
@@ -344,6 +348,7 @@ class PartitionedDeviceScanner:
         end = min(b0 + self.part_rows + PAD_BUCKETS, self.n_global + PAD_BUCKETS)
         return b0, self.host_table.tab[b0:end]
 
+    @trace.traced("scan.push")
     def push(self, p: int) -> int:
         """Copy slice p into the device buffer (rows past the table's end
         zeroed: the last slice's padding) and wait for it; returns b0."""
@@ -397,6 +402,7 @@ class PartitionedDeviceScanner:
         if group:
             yield group
 
+    @trace.traced("scan.prepare")
     def prepare_all(self, seqs: dict[str, str], solid_thre: int) -> dict[str, ContigScan]:
         """Every contig of a batch: each slice pushed once per group, every
         window looked up in each, the counts ORed on the device, classified

@@ -13,6 +13,7 @@ import os
 import sys
 
 from jasper_tpu_torch.pipeline.driver import PipelineError, run_pipeline
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 
@@ -42,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference xargs -P mode); needs --device cpu")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="Write a torch.profiler trace of the run to "
-                        "DIR/trace.json (Chrome trace format)")
+                        "DIR/trace.json (Chrome trace format) and the run's "
+                        "spans and counters to DIR/spans.json, on that "
+                        "trace's clock")
     p.add_argument("--device", default="cuda",
                    help="Device of counting, the table and the scan: cuda, "
                         "cuda:N or cpu (default cuda; no fallback)")
@@ -74,10 +77,13 @@ def run(argv=None) -> dict:
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, trace.annotate():
+        t_cal = trace.calibrate()
         res = run_pipeline(**kwargs)
     os.makedirs(args.profile, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    chrome = os.path.join(args.profile, "trace.json")
+    prof.export_chrome_trace(chrome)
+    trace.export(os.path.join(args.profile, "spans.json"), prof, t_cal, chrome)
     return res
 
 

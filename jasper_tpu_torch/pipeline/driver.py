@@ -72,6 +72,7 @@ from jasper_tpu_torch.parallel.sharded_table import local_devices
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
 from jasper_tpu_torch.polish.engine import CountSource
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 MAX_BATCH_SIZE = 25_000_000  # sh:9
@@ -366,6 +367,7 @@ def _polish_batches_mp(batch_paths, host_table, k, thr, passes, threads, workdir
 
 
 @leave_group_on_error
+@trace.traced("job")
 def run_pipeline(
     assembly: str,
     reads: list[str] | None = None,
@@ -401,7 +403,12 @@ def run_pipeline(
     (parallel/distributed.py) every process polishes its round-robin share
     of the batches, and process 0 splits, counts, writes the histogram and
     joins, at jasper_tpu's barriers; a process that raises leaves the
-    group, so the others fail at their next barrier."""
+    group, so the others fail at their next barrier.
+
+    A job's root span ``job`` (under any span open), with one span a stage:
+    ``driver.split``, ``driver.count``, ``driver.histogram``,
+    ``driver.polish``, ``driver.join``, ``driver.qv`` and ``driver.jf_wait``
+    (the wait for the .jf), and ``driver.jf_write`` on the .jf's thread."""
     from jasper_tpu_torch.polish.runner import polish_file
 
     if cpu_workers and torch.device(device).type != "cpu":
@@ -413,6 +420,7 @@ def run_pipeline(
     stages: list[tuple[float, str]] = []
     ingest = None
     t_start = time.perf_counter()
+    job = trace.current()  # the .jf's thread spans under it
 
     def stage(msg):
         tlog(msg)
@@ -434,10 +442,11 @@ def run_pipeline(
     # split (multi-process: process 0 writes the batch files)
     if proc_id == 0 and not os.path.exists(_marker(workdir, "split")):
         log("Splitting query into batches for parallel execution")
-        for old in os.listdir(workdir):
-            if re.match(re.escape(query_fn) + r"\.batch\..*\.fa$", old):
-                _rm(os.path.join(workdir, old))
-        split_batches(assembly, batch_size, workdir, query_fn)
+        with trace.span("driver.split"):
+            for old in os.listdir(workdir):
+                if re.match(re.escape(query_fn) + r"\.batch\..*\.fa$", old):
+                    _rm(os.path.join(workdir, old))
+            split_batches(assembly, batch_size, workdir, query_fn)
         _rm(_marker(workdir, "correct"))
         _touch(_marker(workdir, "split"))
     barrier("split")
@@ -482,11 +491,13 @@ def run_pipeline(
                 log(f"Counting data-parallel over {mesh.shape['data']} devices")
             stage("count: start (ingest + device counting)")
             ingest = IngestStats()
-            host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
-                reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage,
-                mesh=mesh, return_device_table=True, ingest=ingest)
+            with trace.span("driver.count"):
+                host_table, rkeys, rcounts, dev_tab = count_reads_to_host(
+                    reads, k, device, hash_size_hint=max(jf_size, 1024), tlog=stage,
+                    mesh=mesh, return_device_table=True, ingest=ingest)
             stage(ingest.line())
-            write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
+            with trace.span("driver.histogram"):
+                write_histogram(histo_csv, histogram_rows_from_counts(rcounts))
             stage("count: histogram done")
 
             # the polish stage reads the in-memory table; the .jf artifact
@@ -500,8 +511,9 @@ def run_pipeline(
                 except OSError:
                     pass
                 tmp = path + ".tmp"
-                write_jf(tmp, kk, ks, cs.astype(np.uint64))
-                os.replace(tmp, path)
+                with trace.span("driver.jf_write", parent=job):
+                    write_jf(tmp, kk, ks, cs.astype(np.uint64))
+                    os.replace(tmp, path)
                 stage(f"count: background .jf write done "
                       f"({time.perf_counter() - t0:.1f}s thread time)")
 
@@ -536,13 +548,14 @@ def run_pipeline(
             not os.path.exists(_marker(workdir, "histo"))
             or not (os.path.exists(histo_csv) and os.path.getsize(histo_csv) > 0)):
         log("Computing K-mer histogram")
-        if plan.regime != "replicated":
-            rows = histogram_rows_host(host_table.tab, k)
-        else:
-            if dev_tab is None:  # uploaded once: the scanner below takes it too
-                dev_tab = table_from_numpy(host_table.tab, device)
-            rows = histogram_rows(dev_tab, k)
-        write_histogram(histo_csv, rows)
+        with trace.span("driver.histogram"):
+            if plan.regime != "replicated":
+                rows = histogram_rows_host(host_table.tab, k)
+            else:
+                if dev_tab is None:  # uploaded once: the scanner below takes it too
+                    dev_tab = table_from_numpy(host_table.tab, device)
+                rows = histogram_rows(dev_tab, k)
+            write_histogram(histo_csv, rows)
         _rm(_marker(workdir, "correct"))
         _touch(_marker(workdir, "histo"))
     barrier("histo")
@@ -551,45 +564,46 @@ def run_pipeline(
     counts = scanner = None
     threshold_txt = os.path.join(workdir, "threshold.txt")
     if not os.path.exists(_marker(workdir, "correct")):
-        log("Polishing")
-        thr = threshold_from_histogram(read_histogram(histo_csv))
-        if thr is None:
-            raise PipelineError(
-                "Local min of kmer counts is smaller than 4. The input read "
-                "data is not suitable for polishing."
-            )
-        with open(threshold_txt, "w") as f:
-            f.write(str(thr))
-        log(f"Lower threshold for unreliable kmers is {thr}")
-        if cpu_workers and threads > 1 and len(batch_paths) > 1:
-            _polish_batches_mp(
-                batch_paths, host_table, k, thr, passes, threads, workdir
-            )
-        else:
-            counts = CountSource(host_table)
-            scanner = select_scanner(host_table, k, device, device_tab=dev_tab,
-                                     plan=plan)
-            dev_tab = None  # the scanner holds what it needs
-            log("Scanner: " + describe(scanner, "built on the device by the count"
-                                       if from_count else "uploaded from the host"))
-
-            def engine_cls(c, kk, t):
-                return DevicePolishEngine(c, kk, t, scanner=scanner)
-
-            stage("polish: start")
-            for bp in my_shard(batch_paths, proc_id, proc_count):
-                bn = os.path.basename(bp)
-                polish_file(
-                    bp, counts, k, thr, passes,
-                    fix=True, test=True,
-                    fout=f"{bn}.fix.csv", fixedout=f"{bn}.fixed.fa.tmp",
-                    workdir=workdir, engine_cls=engine_cls,
+        with trace.span("driver.polish"):
+            log("Polishing")
+            thr = threshold_from_histogram(read_histogram(histo_csv))
+            if thr is None:
+                raise PipelineError(
+                    "Local min of kmer counts is smaller than 4. The input read "
+                    "data is not suitable for polishing."
                 )
-                os.replace(
-                    os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa.tmp"),
-                    os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa"),
+            with open(threshold_txt, "w") as f:
+                f.write(str(thr))
+            log(f"Lower threshold for unreliable kmers is {thr}")
+            if cpu_workers and threads > 1 and len(batch_paths) > 1:
+                _polish_batches_mp(
+                    batch_paths, host_table, k, thr, passes, threads, workdir
                 )
-                stage(f"polish: batch {bn} done")
+            else:
+                counts = CountSource(host_table)
+                scanner = select_scanner(host_table, k, device, device_tab=dev_tab,
+                                         plan=plan)
+                dev_tab = None  # the scanner holds what it needs
+                log("Scanner: " + describe(scanner, "built on the device by the count"
+                                           if from_count else "uploaded from the host"))
+
+                def engine_cls(c, kk, t):
+                    return DevicePolishEngine(c, kk, t, scanner=scanner)
+
+                stage("polish: start")
+                for bp in my_shard(batch_paths, proc_id, proc_count):
+                    bn = os.path.basename(bp)
+                    polish_file(
+                        bp, counts, k, thr, passes,
+                        fix=True, test=True,
+                        fout=f"{bn}.fix.csv", fixedout=f"{bn}.fixed.fa.tmp",
+                        workdir=workdir, engine_cls=engine_cls,
+                    )
+                    os.replace(
+                        os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa.tmp"),
+                        os.path.join(workdir, f"_iter{last_it}_{bn}.fixed.fa"),
+                    )
+                    stage(f"polish: batch {bn} done")
         barrier("correct")  # every process's batches done before the join
         _rm(_marker(workdir, "join"))
         _touch(_marker(workdir, "correct"))
@@ -600,42 +614,45 @@ def run_pipeline(
     if proc_id == 0 and not os.path.exists(_marker(workdir, "join")):
         log("Joining")
         stage("join: start")
-        fixed_paths = [
-            os.path.join(workdir, f"_iter{last_it}_{os.path.basename(bp)}.fixed.fa")
-            for bp in batch_paths
-        ]
-        contig_order = list(read_fasta(assembly).keys())
-        join_polished(fixed_paths, batch_size, contig_order, polished)
-        for p in fixed_paths:
-            _rm(p)
-        fix_csv_re = r"_iter\d+_" + re.escape(query_fn) + r"\.batch\.\d+\.fa\.fix\.csv$"
-        csv_paths = sorted(os.path.join(workdir, p) for p in os.listdir(workdir)
-                           if re.match(fix_csv_re, p))
-        join_fix_csvs(csv_paths, fixes_csv)
-        _touch(_marker(workdir, "join"))
-        if not debug:
-            for p in os.listdir(workdir):
-                if re.match(fix_csv_re, p) or re.match(
-                        re.escape(query_fn) + r"\.batch\.\d+\.fa$", p):
-                    _rm(os.path.join(workdir, p))
+        with trace.span("driver.join"):
+            fixed_paths = [
+                os.path.join(workdir, f"_iter{last_it}_{os.path.basename(bp)}.fixed.fa")
+                for bp in batch_paths
+            ]
+            contig_order = list(read_fasta(assembly).keys())
+            join_polished(fixed_paths, batch_size, contig_order, polished)
+            for p in fixed_paths:
+                _rm(p)
+            fix_csv_re = r"_iter\d+_" + re.escape(query_fn) + r"\.batch\.\d+\.fa\.fix\.csv$"
+            csv_paths = sorted(os.path.join(workdir, p) for p in os.listdir(workdir)
+                               if re.match(fix_csv_re, p))
+            join_fix_csvs(csv_paths, fixes_csv)
+            _touch(_marker(workdir, "join"))
+            if not debug:
+                for p in os.listdir(workdir):
+                    if re.match(fix_csv_re, p) or re.match(
+                            re.escape(query_fn) + r"\.batch\.\d+\.fa$", p):
+                        _rm(os.path.join(workdir, p))
     barrier("join")  # the join is done before anyone reads its outputs
 
     # QV: every process reads the shared helpers; process 0 deletes them
     # once every process has read them
-    err_b, tot_b = read_qv_helper(os.path.join(workdir, "0qValCalcHelper.csv"))
-    err_a, tot_a = read_qv_helper(os.path.join(workdir, f"{passes}qValCalcHelper.csv"))
-    q_before = qv_from_tallies(err_b, tot_b, k)
-    q_after = qv_from_tallies(err_a, tot_a, k)
-    log(f"Before Polishing: Q value = {q_before}")
-    log(f"After Polishing: Q value = {q_after}")
-    barrier("qv")
-    if proc_id == 0:
-        for p in os.listdir(workdir):
-            if p.endswith("qValCalcHelper.csv"):
-                _rm(os.path.join(workdir, p))
+    with trace.span("driver.qv"):
+        err_b, tot_b = read_qv_helper(os.path.join(workdir, "0qValCalcHelper.csv"))
+        err_a, tot_a = read_qv_helper(os.path.join(workdir, f"{passes}qValCalcHelper.csv"))
+        q_before = qv_from_tallies(err_b, tot_b, k)
+        q_after = qv_from_tallies(err_a, tot_a, k)
+        log(f"Before Polishing: Q value = {q_before}")
+        log(f"After Polishing: Q value = {q_after}")
+        barrier("qv")
+        if proc_id == 0:
+            for p in os.listdir(workdir):
+                if p.endswith("qValCalcHelper.csv"):
+                    _rm(os.path.join(workdir, p))
     if db_writer is not None:
         t0 = time.perf_counter()
-        db_writer.join()
+        with trace.span("driver.jf_wait"):
+            db_writer.join()
         wait = time.perf_counter() - t0
         if wait > 0.5:
             stage(f"blocked {wait:.1f}s waiting for background .jf write")

@@ -32,6 +32,7 @@ from jasper_tpu_torch.polish.window import (
     scan_counts_tiled,
     table_copies,
 )
+from jasper_tpu_torch.utils import trace
 
 
 class ContigScan:
@@ -71,7 +72,9 @@ class DeviceScanner:
     _dp_scan_fn, K12), the table copied once to each distinct device
     (repeated devices share one copy); the counts gather on ``tab``'s
     device and are classified there. ``seconds`` accumulates the wall time
-    of prepare()."""
+    of prepare(), each call a span ``scan.prepare`` with the children
+    ``scan.encode`` (the host's encode), ``scan.upload``, ``scan.device``
+    (the launches up to the first host read) and classify_tiled's."""
 
     regime = "replicated"
 
@@ -86,14 +89,19 @@ class DeviceScanner:
 
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:
         t0 = time.perf_counter()
-        codes = torch.from_numpy(np.ascontiguousarray(encode(seq), dtype=np.uint8))
-        codes = codes.to(self.tab.device)
-        if self.mesh is None:
-            counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
-        else:
-            counts = scan_counts_mesh(self._tabs, codes, self.k, self.tile, self.mesh.flat)
-        scan = ContigScan(*classify_tiled(codes, counts, solid_thre, self.k, self.tile,
-                                          self.divisor))
+        with trace.span("scan.prepare"):
+            with trace.span("scan.encode"):
+                codes = torch.from_numpy(np.ascontiguousarray(encode(seq), dtype=np.uint8))
+            with trace.span("scan.upload"):
+                codes = codes.to(self.tab.device)
+            with trace.span("scan.device"):
+                if self.mesh is None:
+                    counts = scan_counts_tiled(self.tab, codes, self.k, self.tile)
+                else:
+                    counts = scan_counts_mesh(self._tabs, codes, self.k, self.tile,
+                                              self.mesh.flat)
+            scan = ContigScan(*classify_tiled(codes, counts, solid_thre, self.k, self.tile,
+                                              self.divisor))
         self.seconds += time.perf_counter() - t0
         return scan
 
@@ -106,7 +114,8 @@ class DevicePolishEngine(PolishEngine):
     """PolishEngine with the scan hot path on the device. Repair logic
     (error localization, candidate edits, BFS patching) is inherited
     unchanged. ``passes`` records, per run_pass, its wall time, the part
-    spent in the device scan, and its fix count."""
+    spent in the device scan, and its fix count. A pass is a span
+    ``walk.pass``, as PolishEngine's."""
 
     def __init__(self, counts: CountSource, k: int, solid_threshold: int,
                  divisor: int = 50, scanner=None):
@@ -117,6 +126,7 @@ class DevicePolishEngine(PolishEngine):
         self.scanner = scanner
         self.passes: list[dict] = []
 
+    @trace.traced("walk.pass")
     def run_pass(self, seqs: dict[str, str], fix: bool) -> PassResult:
         t0_pass = time.perf_counter()
         scan0 = self.scanner.seconds

@@ -24,6 +24,12 @@ fast path hits a precomputed vector and only novel candidate k-mers go
 through string queries.
 
 Reference landmarks cited inline as j.py:<line>.
+
+Spans: ``walk.pass`` per run_pass, ``walk.region`` per _repair_region and
+``walk.fix`` per _apply_fix. Counters: ``walk.candidates.<kind>`` per
+candidate edit validated (kind: sub, ins_removal, del, diploid, homo_del,
+homo_ins, bfs), ``walk.splice_bytes`` (the length of each contig string a
+splice rebuilds) and ``walk.fixes`` (FixRecords made).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import dataclasses
 import numpy as np
 
 from jasper_tpu_torch.table.native_table import NativeTableQuery
-from jasper_tpu_torch.utils import pairwise
+from jasper_tpu_torch.utils import pairwise, trace
 
 BASES = ["A", "C", "G", "T"]  # j.py:530 extension order
 SUB_ORDER = "ACTG"  # j.py:397 substitution trial order
@@ -122,6 +128,7 @@ class PolishEngine:
 
     # -- one polishing pass over all contigs (j.py:35-111) ------------------
 
+    @trace.traced("walk.pass")
     def run_pass(self, seqs: dict[str, str], fix: bool) -> PassResult:
         k, q = self.k, self.q
         total_wrong = 0
@@ -179,6 +186,7 @@ class PolishEngine:
 
     # -- error localization (j.py:150-223 handle_bad_kmers) ------------------
 
+    @trace.traced("walk.region")
     def _repair_region(self, i, seq, wrong, fix, fixes, name, rolling_thre):
         k, q = self.k, self.q
         thre = rolling_thre if rolling_thre > 0 else self.solid_thre
@@ -264,13 +272,16 @@ class PolishEngine:
             if mutation != "nN":  # j.py:214-222
                 if len(where) == 1:
                     fixes.append(FixRecord(name, where[0], mutation, original))
+                    trace.add("walk.fixes")
                 else:
                     fixes.append(FixRecord(name, where[0], mutation[0], original[0]))
                     fixes.append(FixRecord(name, where[1], mutation[1], original[1]))
+                    trace.add("walk.fixes", 2)
         return i, seq, wrong, False
 
     # -- fix dispatch (j.py:226-332 fixing_sid) ------------------------------
 
+    @trace.traced("walk.fix")
     def _apply_fix(self, seq, to_fix, thre, n_bad, good_before, good_after):
         k = self.k
         mutation = "nN"
@@ -378,16 +389,20 @@ class PolishEngine:
                         mutation.append(new)
                         where.append(idx + good_before + 1)
 
+        if mutation != "nN":  # every branch that edits rebuilds the contig string
+            trace.add("walk.splice_bytes", len(seq))
         return seq, mutation, original, where
 
     # -- candidate generators -----------------------------------------------
 
-    def _validate(self, trial, thre) -> bool:
+    def _validate(self, trial, thre, kind: str) -> bool:
         """First, last, then every step-th k-mer >= thre (j.py:585-599).
 
         All strided positions score in ONE native batch call when available
         (q is pure, so evaluating past the reference's short-circuit point
-        cannot change the answer)."""
+        cannot change the answer). ``kind`` names the candidate edit's
+        counter, walk.candidates.<kind>."""
+        trace.add("walk.candidates." + kind)
         k, q = self.k, self.q
         starts = [0, max(len(trial) - k, 0)] + list(
             range(self.step, len(trial) - k, self.step)
@@ -412,7 +427,7 @@ class PolishEngine:
             if b == bad:
                 continue
             trial = to_fix[: k - 1] + b + to_fix[k:]
-            if self._validate(trial, thre):
+            if self._validate(trial, thre, "sub"):
                 return b, trial
         return None, None
 
@@ -421,7 +436,7 @@ class PolishEngine:
         k = self.k
         removed = to_fix[k - 1]
         trial = to_fix[: k - 1] + to_fix[k:]
-        if self._validate(trial, thre):
+        if self._validate(trial, thre, "ins_removal"):
             return removed, trial
         return None, None
 
@@ -430,7 +445,7 @@ class PolishEngine:
         k = self.k
         for alt in DEL_ORDER:
             trial = to_fix[: k - 1] + alt + to_fix[k - 1 :]
-            if self._validate(trial, thre):
+            if self._validate(trial, thre, "del"):
                 return alt, trial
         return None, None
 
@@ -461,7 +476,7 @@ class PolishEngine:
                     + y
                     + to_fix[k:]
                 )
-                if self._validate(before + trial + after, thre):
+                if self._validate(before + trial + after, thre, "diploid"):
                     if x == left_bad:
                         side = "e"
                     elif y == right_bad:
@@ -510,7 +525,7 @@ class PolishEngine:
         # fallback: single insertion just before the first good k-mer
         for alt in DEL_ORDER:
             trial = to_fix[: k - 2] + alt + to_fix[k - 2 :]
-            if self._validate(trial, thre):
+            if self._validate(trial, thre, "homo_del"):
                 return k - 2, alt, trial
         return None, None, None
 
@@ -540,7 +555,7 @@ class PolishEngine:
         # fallback: delete one base within the trailing window
         for i in range(len(to_fix) - k, len(to_fix) - 1):
             trial = to_fix[:i] + to_fix[i + 1 :]
-            if self._validate(trial, thre):
+            if self._validate(trial, thre, "homo_ins"):
                 return i, to_fix[i], trial
         return None, None, None
 
@@ -600,7 +615,7 @@ class PolishEngine:
                                         + anchor_r[-(k - MIN_OVERLAP) :]
                                     )[-(2 * k - 1) :]
                                     result = (paths[pi] + base)[1:-MIN_OVERLAP]
-                                if self._validate(connected, thre):
+                                if self._validate(connected, thre, "bfs"):
                                     if i == MIN_OVERLAP:
                                         return None  # empty patch (j.py:568-571)
                                     return result

@@ -32,6 +32,7 @@ from jasper_tpu_torch.pipeline.driver import qv_from_tallies, read_qv_helper
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
 from jasper_tpu_torch.polish.engine import CountSource, PolishEngine
 from jasper_tpu_torch.table.host_table import HostKmerTable
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 
@@ -40,6 +41,7 @@ def _iter_name(path: str, ite: int) -> str:
     return head + "_iter" + str(ite) + "_" + tail
 
 
+@trace.traced("polish")
 def polish_file(
     query_path: str,
     counts: CountSource,
@@ -57,7 +59,9 @@ def polish_file(
     """Run `passes` fixing iterations + one QV scan over a FASTA file.
 
     Writes the same artifact set as reference jasper.py. Returns the final
-    sequence dict.
+    sequence dict. A job's root span ``polish`` (under any span open), with
+    ``polish.write`` around each write of a QV helper, a fix CSV or the
+    fixed FASTA.
     """
     import time as _time
 
@@ -79,12 +83,12 @@ def polish_file(
 
         if test and (ite == 0 or ite == passes):
             helper = os.path.join(workdir, f"{ite}qValCalcHelper.csv")
-            with open(helper, "a") as f:
+            with trace.span("polish.write", what="qv"), open(helper, "a") as f:
                 f.write(f"{result.total_wrong_kmers} {result.total_kmers}\n")
 
         if ite_fix:
             ite_fout = os.path.join(workdir, _iter_name(fout, ite))
-            with open(ite_fout, "w") as f:
+            with trace.span("polish.write", what="fixes"), open(ite_fout, "w") as f:
                 w = csv.writer(f, delimiter=" ")
                 w.writerow(["Contig", "Base_coord", "Original", "Mutation"])
                 w.writerows(
@@ -93,7 +97,7 @@ def polish_file(
 
         if ite == passes and user_fix_choice:
             out_path = os.path.join(workdir, final_fixedout)
-            with open(out_path, "w") as f:
+            with trace.span("polish.write", what="fasta"), open(out_path, "w") as f:
                 for name, seq in seqs.items():
                     f.write(f">{name}\n")
                     for off in range(0, len(seq), 60):

@@ -31,6 +31,7 @@ import torch
 
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.table.probe import lookup_kmers, to_i32_bits
+from jasper_tpu_torch.utils import trace
 
 M32 = 0xFFFFFFFF
 
@@ -119,35 +120,38 @@ def scan_counts_mesh(tabs, codes, k: int, tile: int, devices):
     return counts
 
 
-def _classified_tiles(codes, counts, solid_threshold: int, k: int, tile: int,
-                      divisor: int):
-    """classify over a contig ``tile`` windows at a time, each tile with the
-    k windows before it so that its first windows compare across the
-    boundary -> (pos, m, (valid, below, reldrop, unsafe)) per tile, the
-    flags of windows [pos, pos + m) on the tensors' device."""
-    n = counts.shape[0]
-    for pos in range(0, n, tile):
-        m = min(tile, n - pos)
-        h = min(k, pos)
-        flags = classify(codes[pos - h : pos + m + k - 1], counts[pos - h : pos + m],
-                         solid_threshold, k, divisor)
-        yield pos, m, [f[h:] for f in flags]
+def _classify_tile(codes, counts, pos: int, m: int, solid_threshold: int, k: int,
+                   divisor: int):
+    """classify of windows [pos, pos + m) of a contig, with the k windows
+    before them so that the first compare across the tile's start ->
+    (valid, below, reldrop, unsafe) of those windows, on the tensors'
+    device."""
+    h = min(k, pos)
+    flags = classify(codes[pos - h : pos + m + k - 1], counts[pos - h : pos + m],
+                     solid_threshold, k, divisor)
+    return [f[h:] for f in flags]
 
 
 def classify_tiled(codes, counts, solid_threshold: int, k: int, tile: int = 1 << 22,
                    divisor: int = 50):
     """A contig's codes uint8 [L] and window counts (int32 bits [L-k+1], on
     one device) classified a tile at a time -> numpy (counts uint32, valid
-    bool, unsafe bool), each [L-k+1]: a ContigScan's arrays."""
+    bool, unsafe bool), each [L-k+1]: a ContigScan's arrays. Each tile's
+    classification is a span ``scan.device`` and its arrays' copy to the
+    host, where the host waits for the card, a span ``scan.pull``."""
     n = counts.shape[0]
     out = np.empty(n, np.uint32)
     valid = np.empty(n, bool)
     unsafe = np.empty(n, bool)
-    for pos, m, (v, _below, _rel, u) in _classified_tiles(codes, counts, solid_threshold,
-                                                          k, tile, divisor):
-        out[pos : pos + m] = counts[pos : pos + m].cpu().numpy().view(np.uint32)
-        valid[pos : pos + m] = v.cpu().numpy()
-        unsafe[pos : pos + m] = u.cpu().numpy()
+    for pos in range(0, n, tile):
+        m = min(tile, n - pos)
+        with trace.span("scan.device"):
+            v, _below, _rel, u = _classify_tile(codes, counts, pos, m, solid_threshold, k,
+                                                divisor)
+        with trace.span("scan.pull"):
+            out[pos : pos + m] = counts[pos : pos + m].cpu().numpy().view(np.uint32)
+            valid[pos : pos + m] = v.cpu().numpy()
+            unsafe[pos : pos + m] = u.cpu().numpy()
     return out, valid, unsafe
 
 
@@ -169,8 +173,9 @@ def scan_window_tiled(tab, codes, solid_threshold: int, k: int, tile: int = 1 <<
     n = counts.shape[0]
     below = np.empty(n, bool)
     rel = np.empty(n, bool)
-    for pos, m, (_v, b, r, _u) in _classified_tiles(codes, counts, solid_threshold, k,
-                                                    tile, divisor):
+    for pos in range(0, n, tile):
+        m = min(tile, n - pos)
+        _v, b, r, _u = _classify_tile(codes, counts, pos, m, solid_threshold, k, divisor)
         below[pos : pos + m] = b.cpu().numpy()
         rel[pos : pos + m] = r.cpu().numpy()
     return counts.cpu().numpy().view(np.uint32), below, rel

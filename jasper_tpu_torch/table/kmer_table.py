@@ -26,6 +26,7 @@ from jasper_tpu_torch.table.layout import (  # noqa: F401 (jasper_tpu's names he
     slots_for,
 )
 from jasper_tpu_torch.table.probe import lookup_kmers, to_i32_bits
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 
@@ -69,10 +70,6 @@ def run_to_numpy(h: torch.Tensor, keys: torch.Tensor, counts: torch.Tensor
 
 # claim array entry of a free slot: int32 lane ids lie below it (B < 2^31)
 _EMPTY_CLAIM = (1 << 31) - 1
-
-# pending lanes summed over the claim rounds of every insert since the last
-# reset (each gathers its row): the insert's bytes in chip_smoke.py's bound
-ROUND_LANES = 0
 
 
 def empty_table(k: int, n_slots: int, device="cuda") -> torch.Tensor:
@@ -160,11 +157,12 @@ def insert_kmers(tab, keys, counts, active, max_rounds: int = 512,
                        dtype=torch.int32, device=dev)
     lanes = torch.nonzero(active, as_tuple=True)[0]  # pending lane ids
     off = torch.zeros_like(lanes)
-    global ROUND_LANES
     r = stall = placed = failed = 0
     while lanes.numel() and r < max_rounds and stall < 8:
         n_before = lanes.numel()
-        ROUND_LANES += n_before
+        # pending lanes of each claim round (each gathers its row): the
+        # insert's bytes in chip_smoke.py's bound
+        trace.add("k8.round_lanes", n_before)
         b = home[lanes] + off
         rows = tab[b]
         kk, cc = keys[lanes], counts[lanes]

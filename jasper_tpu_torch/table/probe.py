@@ -25,13 +25,7 @@ import torch
 
 from jasper_tpu_torch.ops.hashing import M32, home_of, mix32_plain
 from jasper_tpu_torch.table.layout import PAD_BUCKETS, ROW_U32, slot_words_for
-
-# kernel launches since the last reset (the main-path proof in
-# chip_smoke.py): unranged on a whole table, ranged (a table slice), and
-# unranged on a shard of a hash-sharded table (owner_bits > 0)
-LAUNCHES = 0
-RANGED_LAUNCHES = 0
-OWNER_LAUNCHES = 0
+from jasper_tpu_torch.utils import trace
 
 
 def _layout(tab: torch.Tensor, keys: torch.Tensor):
@@ -172,23 +166,21 @@ def _launch(fn, tab, keys, valid, *args):
 
 
 def lookup_kmers_cuda(tab, keys, valid, owner_bits: int = 0):
-    """Launch csrc/probe.cu on the current stream (no synchronise)."""
-    global LAUNCHES, OWNER_LAUNCHES
+    """Launch csrc/probe.cu on the current stream (no synchronise); counted
+    in ``k1.launches``, or on a shard (owner_bits > 0) ``k1.owner_launches``."""
     owner_bits = _check_owner_bits(owner_bits)
     n_buckets, W, S = _check_cuda(tab, keys, valid)
     out, launched = _launch("jt_probe_lookup", tab, keys, valid, n_buckets,
                             owner_bits, W, S)
-    if owner_bits:
-        OWNER_LAUNCHES += launched
-    else:
-        LAUNCHES += launched
+    if launched:
+        trace.add("k1.owner_launches" if owner_bits else "k1.launches")
     return out
 
 
 def lookup_kmers_ranged_cuda(tab, keys, valid, n_buckets_global: int,
                              home_base: int, owner_bits: int = 0):
-    """Launch csrc/probe.cu's ranged entry on the current stream."""
-    global RANGED_LAUNCHES
+    """Launch csrc/probe.cu's ranged entry on the current stream; counted in
+    ``k1.ranged_launches``."""
     owner_bits = _check_owner_bits(owner_bits)
     n_local, W, S = _check_cuda(tab, keys, valid)
     if not (1 <= n_buckets_global < 1 << 32 and 0 <= home_base < 1 << 32):
@@ -196,7 +188,8 @@ def lookup_kmers_ranged_cuda(tab, keys, valid, n_buckets_global: int,
                          f"{home_base} out of range")
     out, launched = _launch("jt_probe_lookup_ranged", tab, keys, valid, n_local,
                             int(n_buckets_global), int(home_base), owner_bits, W, S)
-    RANGED_LAUNCHES += launched
+    if launched:
+        trace.add("k1.ranged_launches")
     return out
 
 

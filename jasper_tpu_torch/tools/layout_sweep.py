@@ -60,6 +60,7 @@ from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.table import probe
 from jasper_tpu_torch.table.build import build_table
 from jasper_tpu_torch.tools.measure import probe_bound, sync, time_ms
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 N_ROWS = 1 << 19  # table rows
@@ -106,11 +107,11 @@ def _k1_row(B: int, device) -> dict:
     q = probe.to_i32_bits(torch.where(present[:, None], keys, absent)).contiguous()
     v = torch.from_numpy(rng.random(B) >= 0.1).to(device)
 
-    launches0 = probe.LAUNCHES
+    launches0 = trace.counter("k1.launches")
     got = probe.lookup_kmers(tab, q, v)
     want = probe.lookup_kmers_plain(tab, q, v)
     sync(device)
-    launches = probe.LAUNCHES - launches0
+    launches = trace.counter("k1.launches") - launches0
     diff = ((got.to(torch.int64) & M32) - (want.to(torch.int64) & M32)).abs()
     err = int(diff.max()) if diff.numel() else 0
     if not torch.equal(got, want):

@@ -42,10 +42,10 @@ from jasper_tpu_torch.count.sorted_runs import flush_stage
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast
 from jasper_tpu_torch.polish.device_engine import DevicePolishEngine, DeviceScanner
 from jasper_tpu_torch.polish.engine import CountSource
-from jasper_tpu_torch.table import probe
 from jasper_tpu_torch.table.build import build_table
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import table_to_numpy
+from jasper_tpu_torch.utils import trace
 from jasper_tpu_torch.utils.device import resolve_device
 
 _LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -122,7 +122,7 @@ def main(argv=None) -> dict:
         "clean_pass_fixes": len(res2.fixes),
         "injected": len(subs),
         "records": records,
-        "probe_launches": probe.LAUNCHES,
+        "probe_launches": trace.counter("k1.launches"),
     }
     print(json.dumps(out))
     failed = []

@@ -42,6 +42,7 @@ from jasper_tpu_torch.ops import hashing as th
 from jasper_tpu_torch.ops import kmer as tk
 from jasper_tpu_torch.table import _build
 from jasper_tpu_torch.table import probe as tprobe
+from jasper_tpu_torch.utils import trace
 
 KS = [15, 16, 25, 32, 37]
 LENGTHS = ["short", "exact", "k+15", "odd"]
@@ -146,7 +147,8 @@ def test_cpu_dispatchers_never_load_the_library(monkeypatch):
         raise AssertionError("the kernel library was loaded for a CPU tensor")
 
     monkeypatch.setattr(_build, "load", refuse)
-    before = (tk.LAUNCHES, tk.FILTER_LAUNCHES, th.LAUNCHES)
+    names = ("k3.launches", "k3.filter_launches", "k2.launches")
+    before = tuple(trace.counter(n) for n in names)
     codes = torch.from_numpy(_codes(np.random.default_rng(3), 700))
     for k in (15, 25, 37):
         tk.canonical_windows_fast(codes, k)
@@ -157,7 +159,7 @@ def test_cpu_dispatchers_never_load_the_library(monkeypatch):
         th.mix32(keys.to(torch.int32))
         tsr.flush_stage([keys], [valid])
         tsr.chunk_to_run(codes, k)
-    assert (tk.LAUNCHES, tk.FILTER_LAUNCHES, th.LAUNCHES) == before == (0, 0, 0)
+    assert tuple(trace.counter(n) for n in names) == before == (0, 0, 0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_before_any_build(monkeypatch):

@@ -20,6 +20,7 @@ from jasper_tpu.table.kmer_table import PAD_BUCKETS, lookup_kmers, slots_for
 from jasper_tpu_torch.table import probe
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import table_from_numpy, table_to_numpy
+from jasper_tpu_torch.utils import trace
 from tests import golden_util as G
 
 
@@ -160,10 +161,10 @@ def test_table_from_numpy_of_jax_built_table(k):
 def test_cpu_dispatch_launches_no_kernel():
     rng = np.random.default_rng(3)
     host, keys = _sorted_run_table(rng, 25, 500, 0.55)
-    before = probe.LAUNCHES
+    before = trace.counter("k1.launches")
     q, valid = _queries(rng, keys, 100, 2)
     _port_lookup(host.tab, q, valid)
-    assert probe.LAUNCHES == before == 0
+    assert trace.counter("k1.launches") == before == 0
 
 
 def test_cuda_wrapper_refuses_non_cuda_tensors():

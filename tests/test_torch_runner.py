@@ -18,7 +18,7 @@ from jasper_tpu.polish.runner import polish_file
 from jasper_tpu.table.host_table import HostKmerTable
 
 from jasper_tpu_torch.polish import runner
-from jasper_tpu_torch.table import probe
+from jasper_tpu_torch.utils import trace
 from tests import golden_util as G
 
 PASSES = 2
@@ -76,7 +76,7 @@ def test_runner_matches_jasper_tpu(tmp_path, monkeypatch, k):
     for name in ref:
         assert port[name] == ref[name], name
     assert genome[:300].encode() in port["_iter1_fixed.fa"].replace(b"\n", b"")
-    assert probe.LAUNCHES == 0  # the CPU run took the plain lookup
+    assert trace.counter("k1.launches") == 0  # the CPU run took the plain lookup
 
 
 def test_runner_report(tmp_path, monkeypatch):

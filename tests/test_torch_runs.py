@@ -27,6 +27,7 @@ from jasper_tpu.ops.hashing import mix32 as jmix32
 
 from jasper_tpu_torch.count import sorted_runs as tsr
 from jasper_tpu_torch.table.kmer_table import run_from_numpy, run_to_numpy
+from jasper_tpu_torch.utils import trace
 from tests.test_torch_count import KS, _actives, _assert_runs_equal, _codes
 
 M32 = 0xFFFFFFFF
@@ -195,7 +196,8 @@ def _cpu_run(rng, k=25, n=100, L=128):
 
 def test_cpu_dispatch_launches_no_kernel():
     rng = np.random.default_rng(5)
-    before = (tsr.MERGE_LAUNCHES, tsr.RUNS_LAUNCHES, tsr.COMPACT_LAUNCHES)
+    names = ("k4m.launches", "k4f.launches", "k4f.compact_launches")
+    before = tuple(trace.counter(n) for n in names)
     a, b = _cpu_run(rng), _cpu_run(rng)
     tsr.merge_runs(*a, *b, n_a=100, n_b=100)
     tsr.merge_runs(*a, *b)
@@ -205,7 +207,7 @@ def test_cpu_dispatch_launches_no_kernel():
     tsr.flush_stage([keys], [valid])
     h, perm = tsr._window_order(keys, valid)
     tsr.run_totals(h, keys, valid, perm, compact=True)
-    assert (tsr.MERGE_LAUNCHES, tsr.RUNS_LAUNCHES, tsr.COMPACT_LAUNCHES) == before \
+    assert tuple(trace.counter(n) for n in names) == before \
         == (0, 0, 0)
 
 

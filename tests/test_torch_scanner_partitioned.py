@@ -28,6 +28,7 @@ from jasper_tpu_torch.polish.engine import CountSource, PolishEngine
 from jasper_tpu_torch.table import probe
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import table_from_numpy
+from jasper_tpu_torch.utils import trace
 from tests import golden_util as G
 from tests.test_torch_pipeline import small_case  # noqa: F401
 from tests.test_torch_probe import _queries, _sorted_run_table
@@ -96,7 +97,7 @@ def test_ranged_plain_matches_jasper_tpu(k):
     full = probe.lookup_kmers(table_from_numpy(host.tab, "cpu"), qt, vt)
     assert torch.equal(combined, full)
     assert (full.numpy().view(np.uint32)[:len(keys)][valid[:len(keys)]] > 0).all()
-    assert probe.RANGED_LAUNCHES == 0
+    assert trace.counter("k1.ranged_launches") == 0
 
 
 def test_lookup_needs_both_range_arguments():
@@ -157,7 +158,7 @@ def test_partitioned_scanner_matches(k):
         assert got["draft"].unsafe.any() and got["draft"].counts.any()
     assert tscan.pushes == 2 * tscan.P  # once per prepare_all, not per contig
     assert tscan.push_bytes == tscan.pushes * tscan.slice_bytes
-    assert probe.RANGED_LAUNCHES == probe.LAUNCHES == 0
+    assert trace.counter("k1.ranged_launches") == trace.counter("k1.launches") == 0
 
 
 def test_partitioned_scanner_groups_long_batches(monkeypatch):
