@@ -26,6 +26,7 @@ from jasper_tpu_torch.polish.engine import (
     PolishEngine,
     _all_acgt,
 )
+from jasper_tpu_torch.polish.spliced import Spliced
 from jasper_tpu_torch.polish.window import (
     classify_tiled,
     scan_counts_mesh,
@@ -115,7 +116,9 @@ class DevicePolishEngine(PolishEngine):
     (error localization, candidate edits, BFS patching) is inherited
     unchanged. ``passes`` records, per run_pass, its wall time, the part
     spent in the device scan, and its fix count. A pass is a span
-    ``walk.pass``, as PolishEngine's."""
+    ``walk.pass``, as PolishEngine's. The walk reads only the positions the
+    scan flagged, so it holds each contig in a Spliced (polish/spliced.py)
+    for the pass, and joins it once when it leaves it."""
 
     def __init__(self, counts: CountSource, k: int, solid_threshold: int,
                  divisor: int = 50, scanner=None):
@@ -142,11 +145,12 @@ class DevicePolishEngine(PolishEngine):
             total_kmers += len(seq) - k + 1  # j.py:51
             arrays = scans.pop(name)
             orig_len = len(seq)
+            seq = Spliced(seq)  # a fix copies its patch, not the contig
             clean_from = 0  # first current-coord position allowed to map
             i = 0
             wrong = 0
 
-            def qa(pos: int, seq: str) -> int:
+            def qa(pos: int, seq: Spliced) -> int:
                 """Exact q(seq[pos:k+pos]) via the device array when the
                 window is untouched by edits, scalar host lookup otherwise."""
                 if pos >= clean_from:
@@ -206,7 +210,10 @@ class DevicePolishEngine(PolishEngine):
                         i += k - 1
                 else:
                     i += k - 1
-            out[name] = seq
+            joined = seq.join()
+            if joined is not out[name]:  # the contig's one copy this pass
+                trace.add("walk.splice_bytes", len(joined))
+            out[name] = joined
             total_wrong += wrong
         self.passes.append({
             "seconds": time.perf_counter() - t0_pass,

@@ -2,11 +2,15 @@
 
 Copy of jasper_tpu/polish/engine.py:1-642: the host repair walk
 (PolishEngine, _apply_fix included), FixRecord, PassResult and _all_acgt as
-they are. One difference: this CountSource binds the native query library
+they are, with two differences. This CountSource binds the native query library
 (table/native_table.py) or raises, where jasper_tpu's swallows the failure
 and answers every query on a pure-Python chain (engine.py:48-58); so its
 scalar and batched queries have no fallback branch, and the pure-Python
 query semantics (jasper_tpu/polish/semantics.py) are not needed here.
+And _apply_fix edits its contig at one splice site, _splice, after the
+dispatch, where jasper_tpu rebuilds the string in each branch: a str is
+rebuilt there as before, a Spliced (polish/spliced.py, the piece table
+DevicePolishEngine walks each contig in) takes the patch alone.
 
 This is a clean-room, behaviorally exact reimplementation of the reference
 polishing pass (reference src/jasper.py:35-612). Byte-identical output is a
@@ -28,8 +32,10 @@ Reference landmarks cited inline as j.py:<line>.
 Spans: ``walk.pass`` per run_pass, ``walk.region`` per _repair_region and
 ``walk.fix`` per _apply_fix. Counters: ``walk.candidates.<kind>`` per
 candidate edit validated (kind: sub, ins_removal, del, diploid, homo_del,
-homo_ins, bfs), ``walk.splice_bytes`` (the length of each contig string a
-splice rebuilds) and ``walk.fixes`` (FixRecords made).
+homo_ins, bfs), ``walk.splice_bytes`` (the bytes a splice copies: the
+rebuilt contig's length for a str, the patch's for a Spliced, and the
+contig's length once more where DevicePolishEngine joins an edited
+Spliced) and ``walk.fixes`` (FixRecords made).
 """
 
 from __future__ import annotations
@@ -288,6 +294,8 @@ class PolishEngine:
         original = "-"
         where = None
         region_start = max(0, good_before - k + 2)
+        # every branch that edits puts patched in seq[lo:hi]
+        lo, hi, patched = region_start, good_after + k - 1, None
 
         if n_bad == k:  # substitution or insertion (j.py:232-245)
             b, patched = self._try_substitution(to_fix, thre)
@@ -295,21 +303,18 @@ class PolishEngine:
                 original = "s" + seq[good_after - 1]
                 mutation = b
                 where = [good_after - 1]
-                seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
             else:
                 b, patched = self._try_insertion_removal(to_fix, thre)
                 if b is not None:
                     original = "i" + seq[good_after - 1]
                     mutation = "-"
                     where = [good_after - 1]
-                    seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
 
         elif n_bad == k - 1:  # deletion / diploid / homopolymer-ins (j.py:247-272)
             b, patched = self._try_deletion_repair(to_fix, thre)
             if b is not None:
                 original = "d-"
                 where = [good_after]
-                seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                 mutation = b
             else:
                 left, right, side, patched = self._try_diploid(
@@ -324,13 +329,11 @@ class PolishEngine:
                         original = "s" + seq[good_before + 1]
                         mutation = str(right)
                         where = [good_before + 1]
-                    seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                 else:
                     idx, base, patched = self._try_homopolymer_insertion(to_fix, thre)
                     if base is not None:
                         original = "i" + base
                         mutation = "-"
-                        seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                         where = [idx + region_start]
 
         elif 1 < n_bad < k - 1 and len(to_fix) >= k:  # j.py:274-299
@@ -338,7 +341,6 @@ class PolishEngine:
             if base is not None:
                 original = "d-"
                 where = [idx + region_start]
-                seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                 mutation = base
             else:
                 left, right, side, patched = self._try_diploid(
@@ -353,12 +355,10 @@ class PolishEngine:
                         original = "s" + seq[good_before + 1]
                         mutation = str(right)
                         where = [good_before + 1]
-                    seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                 else:
                     idx, base, patched = self._try_homopolymer_insertion(to_fix, thre)
                     if base is not None:
                         original = "i" + base
-                        seq = seq[:region_start] + patched + seq[good_after + k - 1 :]
                         mutation = "-"
                         where = [idx + region_start]
 
@@ -370,7 +370,7 @@ class PolishEngine:
                 where, mutation, original = [], [], []
                 aln = pairwise.globalms(patch, seq[good_before + 1 : good_after])[0]
                 patched_rep, original_rep = aln[0], aln[1]
-                seq = seq[: good_before + 1] + patch + seq[good_after:]
+                lo, hi, patched = good_before + 1, good_after, patch
                 for idx in range(len(patched_rep)):
                     ori = original_rep[idx]
                     new = patched_rep[idx]
@@ -389,8 +389,8 @@ class PolishEngine:
                         mutation.append(new)
                         where.append(idx + good_before + 1)
 
-        if mutation != "nN":  # every branch that edits rebuilds the contig string
-            trace.add("walk.splice_bytes", len(seq))
+        if mutation != "nN":  # the one splice, after every branch's reads of seq
+            seq = _splice(seq, lo, hi, patched)
         return seq, mutation, original, where
 
     # -- candidate generators -----------------------------------------------
@@ -627,6 +627,18 @@ class PolishEngine:
                     if n_ext == 0:
                         paths[pi] = ""  # dead end
         return None
+
+
+def _splice(seq, lo: int, hi: int, patch: str):
+    """seq[:lo] + patch + seq[hi:]: a new str from a str (which copies the
+    contig), the Spliced itself, edited in place, from a Spliced (which
+    copies the patch); the bytes copied go to walk.splice_bytes."""
+    if isinstance(seq, str):
+        seq = seq[:lo] + patch + seq[hi:]
+        trace.add("walk.splice_bytes", len(seq))
+        return seq
+    trace.add("walk.splice_bytes", len(patch))
+    return seq.splice(lo, hi, patch)
 
 
 _ACGT_SET = frozenset("ACTGactg")

@@ -1,7 +1,8 @@
 """Port parity, the scan: jasper_tpu_torch's tiled scan and classification
 and DevicePolishEngine == jasper_tpu's scan_window_tiled and engine,
 exactly, at k=25 and k=37. The engine is compared pass by pass on the input
-classes of test_device_engine.py."""
+classes of test_device_engine.py, and on a dense draft with every kind of
+repair."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,6 +123,16 @@ def built(request):
 def test_device_engine_matches(built, case):
     genome, j_engine, t_engine = built
     seqs, passes = _cases(genome, np.random.default_rng(11))[case]
+    got_t = _passes_match(j_engine, t_engine, seqs, passes)
+    if case in ("substitutions", "indels"):
+        assert got_t["c"] == genome
+    assert t_engine.passes[-1]["scan_seconds"] <= t_engine.passes[-1]["seconds"]
+
+
+def _passes_match(j_engine, t_engine, seqs, passes):
+    """Both engines' fixing passes from ``seqs``, equal pass by pass: the
+    sequences, the fixes, the wrong and the total k-mers. The port's last
+    sequences."""
     got_j, got_t = dict(seqs), dict(seqs)
     for _ in range(passes):
         r = j_engine.run_pass(got_j, True)
@@ -132,6 +143,92 @@ def test_device_engine_matches(built, case):
         assert [(f.contig, f.coord, f.mutation, f.original) for f in r.fixes] \
             == [(f.contig, f.coord, f.mutation, f.original) for f in d.fixes]
         got_j, got_t = r.seqs, d.seqs
-    if case in ("substitutions", "indels"):
-        assert got_t["c"] == genome
-    assert t_engine.passes[-1]["scan_seconds"] <= t_engine.passes[-1]["seconds"]
+    return got_t
+
+
+DENSE_KINDS = ("sub", "ins", "del", "homo_ins", "homo_del", "diploid", "gap", "close")
+
+
+def _other(base, rng):
+    return "ACGT"[("ACGT".index(base) + 1 + rng.integers(0, 3)) % 4]
+
+
+def _dense_draft(genome, rng, k, n_each=60, spacing=480):
+    """The genome with an error site every ``spacing`` bases, n_each of
+    each kind in turn: sub; ins (a base unlike both neighbours); del (a
+    base unlike both neighbours, which differ too); homo_ins and homo_del
+    (a copy added to or taken from the slot's first run of 3+ bases);
+    diploid (a sub whose draft k-mer starting at it is made solid, so that
+    k-1 windows are bad and one base of the adjacent pair changes); gap
+    (20 bases changed: the BFS patch); close (two subs k+3 apart: the
+    second region starts inside the first fix's patch). Also the extra
+    solid k-mers of the diploid sites."""
+    out, extra, at = [], [], 0
+    for n, kind in enumerate(kd for _ in range(n_each) for kd in DENSE_KINDS):
+        p = spacing * (n + 1)
+        if kind.startswith("homo"):
+            p = next(q for q in range(p, p + spacing - 3 * k)
+                     if genome[q] == genome[q + 1] == genome[q + 2] != genome[q - 1])
+        elif kind == "del":
+            p = next(q for q in range(p, p + spacing - 3 * k)
+                     if len(set(genome[q - 1 : q + 2])) == 3)
+        out.append(genome[at:p])
+        at = p + 1
+        if kind in ("sub", "diploid"):
+            out.append(_other(genome[p], rng))
+            if kind == "diploid":
+                extra.append(out[-1] + genome[p + 1 : p + k])
+        elif kind == "ins":
+            out.append(genome[p] + next(b for b in "ACGT" if b not in genome[p : p + 2]))
+        elif kind == "homo_ins":
+            at = p
+            out.append(genome[p])
+        elif kind == "gap":
+            at = p + 20
+            out.append("".join(_other(b, rng) for b in genome[p:at]))
+        elif kind == "close":
+            at = p + k + 4
+            out.append(_other(genome[p], rng) + genome[p + 1 : at - 1]
+                       + _other(genome[at - 1], rng))
+    return "".join(out) + genome[at:], extra
+
+
+def _solid_table(k, seqs):
+    """Every window of ``seqs`` at count 20, as jasper_tpu's host table."""
+    keys = np.concatenate([canonical_windows(np, encode(s), k)[0] for s in seqs])
+    keys = np.unique(keys, axis=0)
+    skeys, scounts, sh = native_jf.sort_run_records(
+        keys, np.full(len(keys), 20, np.uint64), key_bytes(k))
+    return JHostKmerTable.from_sorted_run(k, skeys, scounts, h=sh).tab
+
+
+@pytest.mark.parametrize("k", [25, 37])
+def test_device_engine_matches_dense_draft(k):
+    """A 240 kb draft with 480 error sites, at least 50 of every repair
+    branch (each counted where its candidate is taken), one contig in
+    hundreds of pieces: both engines equal for two passes."""
+    rng = np.random.default_rng(k)
+    genome = G.random_genome(rng, 240_000)
+    draft, extra = _dense_draft(genome, rng, k)
+    tab_np = _solid_table(k, [genome] + extra)
+    j_engine = JDevicePolishEngine(JCountSource(JHostKmerTable(k, tab_np)), k, THRE,
+                                   scanner=JDeviceScanner(jnp.asarray(tab_np), k, tile=1 << 16))
+    t_engine = DevicePolishEngine(CountSource(HostKmerTable(k, tab_np)), k, THRE,
+                                  scanner=DeviceScanner(table_from_numpy(tab_np, "cpu"), k,
+                                                        tile=1 << 16))
+    taken = dict.fromkeys(["_try_substitution", "_try_insertion_removal",
+                           "_try_deletion_repair", "_try_diploid",
+                           "_try_homopolymer_deletion", "_try_homopolymer_insertion",
+                           "_extend_path"], 0)
+
+    def tally(name, fn):
+        def wrapped(*args):
+            got = fn(*args)
+            taken[name] += (got if name == "_extend_path" else got[-1]) is not None
+            return got
+        return wrapped
+
+    for name in taken:
+        setattr(t_engine, name, tally(name, getattr(t_engine, name)))
+    _passes_match(j_engine, t_engine, {"c": draft}, 2)
+    assert min(taken.values()) >= 50, taken

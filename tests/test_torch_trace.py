@@ -17,7 +17,7 @@ import torch
 
 from jasper_tpu_torch.count.counter import count_sequences
 from jasper_tpu_torch.pipeline import driver
-from jasper_tpu_torch.polish.device_engine import DevicePolishEngine
+from jasper_tpu_torch.polish.device_engine import DevicePolishEngine, DeviceScanner
 from jasper_tpu_torch.polish.engine import CountSource, PolishEngine
 from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import table_to_numpy
@@ -187,11 +187,17 @@ def tiny_job(tmp_path):
 def test_run_pipeline_spans_under_one_job(tiny_job, monkeypatch):
     tmp_path, asm, rf, draft = tiny_job
     engines = []
+    joined = []  # per pass, the bytes of the contigs it edited and joined
 
     class Engine(DevicePolishEngine):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             engines.append(self)
+
+        def run_pass(self, seqs, fix):
+            res = super().run_pass(seqs, fix)
+            joined.append(sum(len(s) for name, s in res.seqs.items() if s is not seqs[name]))
+            return res
 
     monkeypatch.setattr(driver, "DevicePolishEngine", Engine)
     with _profile():
@@ -224,9 +230,12 @@ def test_run_pipeline_spans_under_one_job(tiny_job, monkeypatch):
         for name, n in s["counts"].items():
             total[name] = total.get(name, 0) + n
     assert fixes > 0 and total["walk.fixes"] == fixes
-    # a splice rebuilds its contig (a batch's piece of the draft) and makes
-    # one or two fixes
-    assert fixes / 2 * 25 < total["walk.splice_bytes"] <= fixes * len(draft)
+    # a splice copies its patch (about 2k bases) and makes one or two fixes;
+    # an edited contig (a batch's piece of the draft) is copied once more,
+    # joined at the end of its pass
+    assert sum(joined) > 0
+    assert sum(joined) + fixes / 2 * 25 < total["walk.splice_bytes"]
+    assert total["walk.splice_bytes"] / fixes <= sum(joined) / fixes + 2 * 25
     assert sum(n for name, n in total.items() if name.startswith("walk.candidates.")) >= fixes
     uploads = [s for s in spans if s["name"] == "ingest.upload"]
     assert uploads and all(by_id[s["parent"]]["name"] == "count.chunk" for s in uploads)
@@ -237,8 +246,10 @@ def test_run_pipeline_spans_under_one_job(tiny_job, monkeypatch):
 def test_walk_counts_one_substitution():
     """One substitution in a 3 kb contig: one walk.fix (under a walk.region
     of the pass; the contig's ends, thinly covered, are regions that fix
-    nothing), one fix, one splice of the whole contig, the substitution's
-    candidates."""
+    nothing), one fix, the substitution's candidates, and one splice: of
+    the whole contig in PolishEngine's str; of the 2k-1 bases of the patch
+    in DevicePolishEngine's Spliced, which copies the contig once more, at
+    the join in the pass."""
     k = 25
     rng = np.random.default_rng(9)
     genome = G.random_genome(rng, 3000)
@@ -259,6 +270,17 @@ def test_walk_counts_one_substitution():
     assert region["counts"]["walk.fixes"] == 1
     assert sum(s["counts"].get("walk.fixes", 0) for s in spans) == 1
     assert trace.counter("walk.fixes") == 1
+    trace.reset()
+    with _profile():
+        res = DevicePolishEngine(counts, k, 5, scanner=DeviceScanner(tab, k)).run_pass(
+            {"c": draft}, True)
+    assert res.seqs["c"] == genome and len(res.fixes) == 1
+    spans = trace.spans()
+    (fix,) = [s for s in spans if s["name"] == "walk.fix"]
+    (walk,) = [s for s in spans if s["name"] == "walk.pass"]
+    assert fix["counts"]["walk.splice_bytes"] == 2 * k - 1
+    assert walk["counts"]["walk.splice_bytes"] == len(genome)
+    assert trace.counter("walk.splice_bytes") == len(genome) + 2 * k - 1
 
 
 def test_cli_profile_writes_spans_json(tiny_job):
