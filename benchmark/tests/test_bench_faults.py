@@ -76,10 +76,11 @@ def base_altered(mp):
 
 CASES = [
     ("ecoli_k25.polish_dense", state_unchanged), ("ecoli_k25.polish_dense", base_altered),
-    ("yeast_k37.polish_sparse", base_altered),
     ("yeast_k37.count_hifi", half_left_out), ("yeast_k37.count_hifi", count_altered),
     ("ecoli_k25.job", state_unchanged), ("ecoli_k25.job", half_left_out),
     ("ecoli_k25.job", count_altered), ("ecoli_k25.job", base_altered),
+    ("yeast_k37.job", state_unchanged), ("yeast_k37.job", half_left_out),
+    ("yeast_k37.job", count_altered), ("yeast_k37.job", base_altered),
 ]
 
 

@@ -24,14 +24,14 @@ def _spec():
 
 @pytest.mark.parametrize("trace_on", [False, True])
 def test_result_has_the_contract_keys(trace_on):
-    r = run_tiny("yeast_k37.polish_sparse", seed=8, trace=trace_on)
+    r = run_tiny("ecoli_k25.polish_dense", seed=8, trace=trace_on)
     keys = ["correct", "attempted", "failed", "metrics", "device"]
     assert list(r) == keys + (["breakdown"] if trace_on else []) + ["checks"]
     assert set(r["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
     assert all(set(m) == {"value", "unit"} for m in r["metrics"].values())
     spec = _spec()
     group = "per_layer" if trace_on else "end_to_end"
-    names = {m["name"] for m in harness.metrics_of(spec, "yeast_k37.polish_sparse", group)}
+    names = {m["name"] for m in harness.metrics_of(spec, "ecoli_k25.polish_dense", group)}
     assert set(r["metrics"]) <= names
     if trace_on:
         assert {"busy_s", "window_s"} <= set(r["device"])
