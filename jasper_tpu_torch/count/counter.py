@@ -642,7 +642,12 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
 
     A job's root span ``count`` (under any span open), with ``count.chunk``
     per code chunk, the ingest's spans and ``count.finish`` (its children
-    ``count.finish.pull`` and ``count.finish.host_table``) below it."""
+    ``count.finish.pull`` and ``count.finish.host_table``) below it; the
+    grouped partitioned branch adds its own (_count_partitioned_single_pass,
+    sorted_runs.flush_stage_split) and the counters ``count.partitions``
+    (+P) and ``count.groups`` (+G). Every branch logs "count: device
+    counting done" once, when the last pass over the reads has pushed its
+    chunks."""
     paths = list(paths)
     device = torch.device(device)
 
@@ -683,6 +688,8 @@ def count_reads_to_host(paths: Iterable[str], k: int, device,
             G = 1  # one pass and the eviction valve
         _log(f"count: {P} hash partitions in {G} passes (-s estimate {est}, "
              f"resident budget {resident_bytes} B, {lane_bytes(k)} B lanes)")
+        trace.add("count.partitions", P)
+        trace.add("count.groups", G)
         try:
             return _count_partitioned_single_pass(
                 paths, k, device, P, G, chunk_len,
@@ -772,6 +779,7 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
     def _valve(acc_):
         # a pass that still outgrows the budget (the estimate lied) evicts
         # its levels; the pass's merge takes any number of streams
+        trace.add("count.partition.evictions")
         valve_streams.extend(pull_all_levels(acc_))
         _log(f"count: partition-pass eviction ({len(valve_streams)} streams)")
 
@@ -783,6 +791,8 @@ def _count_partitioned(paths, k: int, device, P: int, chunk_len: int,
             codes_sink=codes_cache if use_cache and p == 0 else None,
             codes_source=codes_cache if use_cache and p > 0 else None, mesh=mesh,
             return_acc=True, ingest=ingest)
+        if p == P - 1:
+            _log(f"count: device counting done ({acc.n_resident_lanes()} resident lanes)")
         _materialize_prev()  # the previous pass's pulls have landed by now
         thunks = start_all_level_pulls(acc)
         thunks.extend((lambda s=s: s) for s in valve_streams)
@@ -806,7 +816,12 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
     counts; pulls that have landed are taken between chunks so their device
     copies go, before the caller's ``progress`` runs. If the resident
     ladders pass ``n_slots`` (the estimate lied low), all of them evict to
-    the host at once; the partitions' streams merge on the host."""
+    the host at once; the partitions' streams merge on the host.
+
+    Spans: ``count.partition.finish`` over a pass's ladder merges and pull
+    launches, ``count.partition.pull_wait`` while the main thread takes a
+    pull; counters ``count.partition.evictions`` and
+    ``count.partition.pull_bytes`` (the landed records' bytes)."""
     PL = P // G
     bits_total = P.bit_length() - 1
     n_windows = chunk_len - k + 1
@@ -814,7 +829,9 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
     pending: list = []  # (global partition, thunk) of pulls in flight
 
     def _take(p, thunk):
-        s = thunk()
+        with trace.span("count.partition.pull_wait"):
+            s = thunk()
+        trace.add("count.partition.pull_bytes", sum(a.nbytes for a in s))
         if len(s[0]):
             part_streams[p].append(s)
 
@@ -839,6 +856,7 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
         def _evict(_acc, pacc=pacc, p0=p0, g=g):
             # every ladder at once: evicting one regains 1/PL of the budget
             # and the evicted keys come back as duplicates
+            trace.add("count.partition.evictions")
             _materialize_pending()
             for pl, acc in enumerate(pacc.accs):
                 pending.extend((p0 + pl, t) for t in start_all_level_pulls(acc))
@@ -851,15 +869,18 @@ def _count_partitioned_single_pass(paths, k: int, device, P: int, G: int,
                     partition=(g, G) if G > 1 else None, accumulator=pacc,
                     return_acc=True, ingest=ingest)
         pacc.drain()
-        _log(f"count: pass {g + 1}/{G} counted "
-             f"({pacc.n_resident_lanes()} resident lanes, {PL} ladders)")
+        resident = pacc.n_resident_lanes()
+        _log(f"count: pass {g + 1}/{G} counted ({resident} resident lanes, {PL} ladders)")
+        if g == G - 1:
+            _log(f"count: device counting done ({resident} resident lanes)")
         _materialize_pending()  # the previous pass's pulls had a pass to land
-        for pl, acc in enumerate(pacc.accs):
-            run = acc.finish()
-            if run is not None and run[3]:
-                n = run[3]
-                pending.append((p0 + pl, start_level_pull(*(a[:n] for a in run[:3]))))
-            del run  # the merged run goes before the next ladder merges
+        with trace.span("count.partition.finish"):
+            for pl, acc in enumerate(pacc.accs):
+                run = acc.finish()
+                if run is not None and run[3]:
+                    n = run[3]
+                    pending.append((p0 + pl, start_level_pull(*(a[:n] for a in run[:3]))))
+                del run  # the merged run goes before the next ladder merges
         del pacc
     _materialize_pending()
     parts = [ss[0] if len(ss) == 1 else merge_host_streams(ss)

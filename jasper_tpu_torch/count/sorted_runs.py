@@ -436,7 +436,11 @@ def flush_stage_split(key_parts, valid_parts, P: int, C: int, p0: int = 0,
     with the P-pass filter).
 
     jasper_tpu slices at a clamped start and rolls the window, so its dead
-    lanes hold other partitions' lanes; here they are zeros."""
+    lanes hold other partitions' lanes; here they are zeros.
+
+    The span ``count.split.bounds`` holds the host's read of the bounds;
+    the counters ``split.flushes``, ``split.slice_lanes`` (the P slices'
+    lanes) and ``split.active_lanes`` (their actives) count each call."""
     _check_pow2(P)
     h, skeys, totals, n_act = flush_stage(key_parts, valid_parts)
     B, W = skeys.shape
@@ -445,8 +449,10 @@ def flush_stage_split(key_parts, valid_parts, P: int, C: int, p0: int = 0,
     hkey = torch.where(totals > 0, h, U32_MAX)
     bvals = (torch.arange(1, P, dtype=torch.int64, device=h.device) + p0) << (32 - bits)
     inner = torch.searchsorted(hkey, bvals)
-    # one host read of the P + 1 bounds: the ladders need the counts anyway
-    bounds = torch.cat([inner.new_zeros(1), inner, n_act.reshape(1)]).tolist()
+    # one host read of the P + 1 bounds: the ladders need the counts anyway;
+    # the host waits here for the stage's sort
+    with trace.span("count.split.bounds"):
+        bounds = torch.cat([inner.new_zeros(1), inner, n_act.reshape(1)]).tolist()
     Cc = min(C, B)
     hs, ks, cs, nacts = [], [], [], []
     ovf = 0
@@ -460,6 +466,9 @@ def flush_stage_split(key_parts, valid_parts, P: int, C: int, p0: int = 0,
         cs.append(cp)
         nacts.append(n)
         ovf += max(e - s - Cc, 0)
+    trace.add("split.flushes")
+    trace.add("split.slice_lanes", Cc * P)
+    trace.add("split.active_lanes", sum(nacts))
     return tuple(hs), tuple(ks), tuple(cs), nacts, ovf
 
 
