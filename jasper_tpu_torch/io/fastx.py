@@ -163,8 +163,10 @@ def stream_codes(
     padding (yielding zero-count invalid windows).
 
     use_native: route parsing/encoding through the C++ parser
-    (native/jt_fastx.cc) when built; None = auto-detect. Identical k-mer
-    content either way (tests/test_native.py asserts it).
+    (csrc/fastx_host.cc, io/native.py) when built; None = auto-detect.
+    Identical k-mer content either way (tests/test_native.py asserts it of
+    jasper_tpu's parser, tests/test_torch_fastx_native.py holds this one to
+    it).
     """
     assert chunk_len > 2 * k
     paths = list(paths)
@@ -180,7 +182,8 @@ def stream_codes(
             yield from _stream_codes_native(paths, k, chunk_len, min_qual_char)
             return
         if use_native:
-            raise RuntimeError("native parser requested but library unavailable")
+            raise RuntimeError("native parser requested but library unavailable: "
+                               f"{native_mod.load_error}")
     buf = np.full(chunk_len, CODE_N, dtype=np.uint8)
     fill = 0
     for path in paths:

@@ -1,10 +1,13 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes.
+"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes,
+and the one build policy of every library of csrc/ (``compile_shared``).
 
 The sources compile at first use into ``jasper_tpu_torch/build/``, one shared
-library per hash of the sources and flags, with a plain C interface (no
-PyTorch headers: a build takes seconds, not minutes). Each source compiles
-in its own nvcc process, all started together, and one more links them.
-A missing nvcc or a failed build raises; nothing falls back.
+library per hash of the sources and flags (``hashed_path``), with a plain C
+interface (no PyTorch headers: a build takes seconds, not minutes). Each
+source compiles in its own compiler process, all started together, and one
+more links them. A missing compiler or a failed build raises with what the
+compiler printed; nothing falls back. io/native.py builds the host parser
+(csrc/fastx_host.cc) the same way with the host's C++ compiler.
 """
 
 from __future__ import annotations
@@ -50,15 +53,22 @@ def _sources() -> list[str]:
     return srcs
 
 
-def library_path() -> str:
-    """Path of the shared library for the current sources, the headers they
-    include (``*.cuh``) and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    for src in _sources() + headers:
+def hashed_path(stem: str, flags: list[str], files: list[str], salt: bytes = b"") -> str:
+    """Path under BUILD_DIR of the library ``stem`` built from ``files`` with
+    ``flags``: one name per hash of them and of ``salt``, so that a change to
+    any of them builds it again."""
+    h = hashlib.sha256(" ".join(flags).encode() + b"\0" + salt)
+    for src in files:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"libjt_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def library_path() -> str:
+    """Path of the kernel library for the current sources, the headers they
+    include (``*.cuh``) and the flags."""
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    return hashed_path("libjt_kernels", NVCC_FLAGS, _sources() + headers)
 
 
 def _run_all(cmds: list[list[str]]) -> str:
@@ -77,27 +87,30 @@ def _run_all(cmds: list[list[str]]) -> str:
         if proc.returncode != 0 and failed is None:
             failed = (cmd, out)
     if failed is not None:
-        raise RuntimeError(f"nvcc failed ({' '.join(failed[0])}):\n{failed[1]}")
+        cmd, out = failed
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({' '.join(cmd)}):\n{out}")
     return "".join(logs)
 
 
-def _compile_and_link(so: str) -> str:
-    """Compile every source to an object in its own nvcc process, the
-    processes started together, then link them into ``so`` -> the build's
-    output (ptxas's register and spill report)."""
+def compile_shared(so: str, compiler: str, flags: list[str], sources: list[str]) -> str:
+    """Compile every source to an object in its own ``compiler`` process, the
+    processes started together, then link them with ``flags`` into ``so``,
+    through a temporary name so that processes building at once each leave a
+    whole library -> what the build printed (for nvcc, ptxas's register and
+    spill report). Raises with the compiler's output when a step fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{so}.{os.getpid()}"
-    flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
+    tag = f"{so}.{os.getpid()}"
+    compile_flags = [f for f in flags if f != "-shared"]
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in sources]
     try:
-        log = _run_all([[nvcc, *flags, "-c", "-o", obj, src]
-                        for src, obj in zip(_sources(), objs)])
-        log += _run_all([[nvcc, *NVCC_FLAGS, "-o", f"{tag}.tmp", *objs]])
+        log = _run_all([[compiler, *compile_flags, "-c", "-o", obj, src]
+                        for src, obj in zip(sources, objs)])
+        log += _run_all([[compiler, *flags, "-o", f"{tag}.tmp", *objs]])
         os.replace(f"{tag}.tmp", so)
     finally:
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
+        for leftover in [*objs, f"{tag}.tmp"]:
+            if os.path.exists(leftover):
+                os.remove(leftover)
     return log
 
 
@@ -112,7 +125,7 @@ def load() -> ctypes.CDLL:
         so = library_path()
         if not os.path.exists(so):
             t0 = time.perf_counter()
-            build_log = _compile_and_link(so)
+            build_log = compile_shared(so, _nvcc(), NVCC_FLAGS, _sources())
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(so)
         lib.jt_probe_lookup.restype = ctypes.c_int

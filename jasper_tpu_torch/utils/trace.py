@@ -12,7 +12,8 @@ with no span open is the root of a job.
 
 ``add(name, n=1)`` adds to one process-wide counter dict, whether tracing
 is on or not; ``counter(name)`` reads it. It takes no lock: the program
-adds its counters at launch and fix granularity on the main thread.
+adds each counter from one thread, at launch and fix granularity on the
+main thread and the parser's ``ingest.*`` a block at a time on its own.
 
 Tracing is on exactly while a torch profiler is active: the process-wide
 ``torch.autograd.profiler._is_profiler_enabled``, which a worker thread

@@ -160,7 +160,7 @@ def test_walk_counts_per_fix():
 NEW = ["parser_offcpu_share.count", "idle_ingest_wait_share.count", "histogram_s.count",
        "ladder_merge_lanes_per_kmer.count", "scan_encode_share.polish",
        "scan_pull_share.polish", "walk_splice_mb_per_fix.polish",
-       "walk_candidates_per_fix.polish"]
+       "walk_candidates_per_fix.polish", "parse_mb_per_s.count"]
 
 
 @pytest.mark.parametrize("metric", NEW + [f"idle_unspanned_share.{kind}"
