@@ -71,7 +71,7 @@ from jasper_tpu_torch.ops.codes import CODE_N, encode
 from jasper_tpu_torch.ops.hashing import M32
 from jasper_tpu_torch.ops.kmer import canonical_windows_fast, forward_windows, words_per_kmer
 from jasper_tpu_torch.table.build import build_table
-from jasper_tpu_torch.table.host_table import HostKmerTable, _require_native
+from jasper_tpu_torch.table.host_table import HostKmerTable
 from jasper_tpu_torch.table.kmer_table import empty_table, run_to_numpy
 from jasper_tpu_torch.table.layout import (
     PAD_BUCKETS,
@@ -520,8 +520,7 @@ def pull_all_levels(acc):
 def merge_host_streams(streams):
     """Merge (h, key)-sorted streams of distinct keys on the host with the
     native k-way heap (counts summed, saturating at 2^32-1). Raises when the
-    native library is missing."""
-    _require_native()
+    native library cannot be built."""
     return native_jf.merge_runs_multi(streams)
 
 

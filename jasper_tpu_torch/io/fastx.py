@@ -177,13 +177,14 @@ def stream_codes(
     any_stream = any(not isinstance(p, str) for p in paths)
     if (use_native is None or use_native) and not any_sam and not any_stream:
         from jasper_tpu_torch.io import native as native_mod
+        from jasper_tpu_torch.table import _build
 
         if native_mod.available():
             yield from _stream_codes_native(paths, k, chunk_len, min_qual_char)
             return
         if use_native:
             raise RuntimeError("native parser requested but library unavailable: "
-                               f"{native_mod.load_error}")
+                               f"{_build.host_error(native_mod.STEM)}")
     buf = np.full(chunk_len, CODE_N, dtype=np.uint8)
     fill = 0
     for path in paths:

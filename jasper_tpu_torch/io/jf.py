@@ -140,22 +140,22 @@ def write_jf(
     # on the background .jf-writer thread, which otherwise starves the
     # concurrent polish scan of host CPU (r4 race instrumentation). The
     # identity-matrix fast path derives the order from the keys alone.
+    # The packer takes counters of at most 8 bytes and fewer than 2^32
+    # records: only a wider input (jf_cli --out-counter-len) takes the numpy
+    # sort, and a packer that cannot be built raises.
+    native = counter_len <= 8 and n < (1 << 32)
     recs = None
-    pos = None
-    if counter_len <= 8:
+    if native:
         if 2 * k <= 64 and lsize <= 2 * k:
             recs = native_jf.jf_sort_pack(
                 keys, np.asarray(counts, np.uint64), None, kb, counter_len,
                 lsize, k, identity_lsize=lsize)
         if recs is None:
-            pos = matrix.times_words(keys)
             recs = native_jf.jf_sort_pack(
-                keys, np.asarray(counts, np.uint64), pos, kb, counter_len,
-                lsize, k)
-    if recs is None:
-        if pos is None:
-            pos = matrix.times_words(keys)
-        skeys, scounts = _sort_records(pos, keys, counts, W)
+                keys, np.asarray(counts, np.uint64), matrix.times_words(keys), kb,
+                counter_len, lsize, k)
+    else:
+        skeys, scounts = _sort_records(matrix.times_words(keys), keys, counts, W)
         max_val = np.uint64((1 << (8 * counter_len)) - 1)
         scounts = np.minimum(scounts, max_val)
 
@@ -178,7 +178,7 @@ def write_jf(
     padlen = (8 - pad) if pad else 0
     hlen = len(hjson) + padlen
 
-    if recs is None:
+    if not native:
         keyb = np.ascontiguousarray(skeys).view("<u4").astype("<u4").tobytes()
         keyb = np.frombuffer(keyb, dtype=np.uint8).reshape(n, 4 * W)[:, :kb]
         cntb = scounts.astype("<u8").view(np.uint8).reshape(n, 8)[:, :counter_len]

@@ -6,11 +6,10 @@ mer_overlap_sequence_parser analog), byte for byte and feed by feed: the
 records its line-at-a-time path does not take go through a copy of that
 state machine.
 
-The source compiles at first use with the host's C++ compiler into
-``jasper_tpu_torch/build/`` through table/_build.py's ``compile_shared``, one
-library per hash of the source, the flags and this CPU's feature flags
-(``-march=native``). A failed build raises with the compiler's output
-(``load_error`` keeps it); ``available()`` is then False, callers
+The source compiles at first use through table/_build.py's
+``host_library`` (``jasper_tpu_torch/build/``, keyed by the source, the flags
+and this CPU). A failed build raises with the compiler's output, and again on
+every later load; ``available()`` is then False, callers
 (io.fastx.stream_codes) take the Python parser, and the port's counting
 raises with that output.
 """
@@ -19,8 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
 
 import numpy as np
 
@@ -28,46 +25,11 @@ from jasper_tpu_torch.table import _build
 from jasper_tpu_torch.utils import trace
 
 SOURCE = os.path.join(_build.CSRC, "fastx_host.cc")
-CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra"]
-
-_lib = None
-_lib_lock = threading.Lock()
-# why the library could not be built or loaded (None until a load failed)
-load_error: Exception | None = None
+STEM = "libjt_fastx_host"
 
 
-def _cpu_flags() -> bytes:
-    """This CPU's feature flags (what ``-march=native`` compiles for)."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            for line in f:
-                if line.startswith(b"flags"):
-                    return line
-    except OSError:
-        pass
-    return b""
-
-
-def library_path(flags: list[str] = CXX_FLAGS) -> str:
-    """Path of the shared library for the source, ``flags`` and this CPU."""
-    return _build.hashed_path("libjt_fastx_host", flags, [SOURCE], _cpu_flags())
-
-
-def _cxx() -> str:
-    found = shutil.which("g++") or shutil.which("c++")
-    if found is None:
-        raise RuntimeError("no C++ compiler (g++, c++) on PATH: the FASTA/FASTQ parser "
-                           "cannot be built")
-    return found
-
-
-def build_library(flags: list[str] = CXX_FLAGS) -> ctypes.CDLL:
-    """Build the source with ``flags`` (unless built) and load it, its
-    entries' argument types set; raises with the compiler's output."""
-    so = library_path(flags)
-    if not os.path.exists(so):
-        _build.compile_shared(so, _cxx(), flags, [SOURCE])
-    lib = ctypes.CDLL(so)
+def _bind(lib: ctypes.CDLL) -> None:
+    """Argument types of the parser's entries."""
     lib.jt_host_parser_new.restype = ctypes.c_void_p
     lib.jt_host_parser_new.argtypes = [ctypes.c_uint8]
     lib.jt_host_parser_free.argtypes = [ctypes.c_void_p]
@@ -78,34 +40,14 @@ def build_library(flags: list[str] = CXX_FLAGS) -> ctypes.CDLL:
     for name in ("jt_host_parser_pending", "jt_host_parser_general_bytes"):
         getattr(lib, name).restype = ctypes.c_int64
         getattr(lib, name).argtypes = [ctypes.c_void_p]
-    return lib
 
 
-def _load():
-    """The library built with CXX_FLAGS, loaded once; raises why it cannot,
-    and raises the same again on every later call."""
-    global _lib, load_error
-    if _lib is not None:
-        return _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if load_error is not None:
-            raise load_error
-        try:
-            _lib = build_library()
-        except (OSError, RuntimeError) as e:
-            load_error = e
-            raise
-        return _lib
+def _load() -> ctypes.CDLL:
+    return _build.host_library(STEM, [SOURCE], _bind)
 
 
 def available() -> bool:
-    try:
-        _load()
-    except (OSError, RuntimeError):
-        return False
-    return True
+    return _build.loads(_load)
 
 
 class NativeParser:

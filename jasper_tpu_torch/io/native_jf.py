@@ -5,105 +5,80 @@ write_jf's record section is (pos, key)-sorted packed bytes; the numpy path
 costs ~64 s at 55.7 M records (three stable argsorts + strided packing) and,
 on the background .jf-writer thread, starved the concurrent polish scan
 (r4 race instrumentation). The native LSD byte-radix + single packing pass
-does the same job in ~5 s. Falls back to None when the library can't be
-built; callers keep the numpy path.
+does the same job in ~5 s. The source compiles at first use through
+table/_build.py's ``host_library`` (``jasper_tpu_torch/build/``; the source
+is read in place); every entry raises with the compiler's output when it
+cannot be built, and nothing falls back to numpy.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import threading
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_SO_PATH = os.path.join(_NATIVE_DIR, "libjtjf.so")
+from jasper_tpu_torch.table import _build
 
-_lib = None
-_lib_lock = threading.Lock()
-_lib_failed = False
+SOURCE = os.path.join(_build.NATIVE, "jt_jf.cc")
+STEM = "libjt_jf"
 
 
-def _load():
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
-        return _lib
-    with _lib_lock:
-        if _lib is not None or _lib_failed:
-            return _lib
-        if not os.path.exists(_SO_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR, "libjtjf.so"],
-                    capture_output=True, timeout=120, check=True,
-                )
-            except Exception:
-                _lib_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
-            _lib_failed = True
-            return None
-        lib.jt_mix32_batch.restype = None
-        lib.jt_mix32_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.jt_jf_sort_order.restype = None
-        lib.jt_jf_sort_order.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.jt_merge_runs_multi.restype = ctypes.c_int64
-        lib.jt_merge_runs_multi.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.jt_sort_run_records.restype = None
-        lib.jt_sort_run_records.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.jt_waterfall_build.restype = ctypes.c_int
-        lib.jt_waterfall_build.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.jt_waterfall_extend.restype = ctypes.c_int
-        lib.jt_waterfall_extend.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-        lib.jt_jf_sort_pack.restype = None
-        lib.jt_jf_sort_pack.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        _lib = lib
-        return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    """Argument types of the library's entries."""
+    lib.jt_mix32_batch.restype = None
+    lib.jt_mix32_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.jt_jf_sort_order.restype = None
+    lib.jt_jf_sort_order.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.jt_merge_runs_multi.restype = ctypes.c_int64
+    lib.jt_merge_runs_multi.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.jt_sort_run_records.restype = None
+    lib.jt_sort_run_records.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.jt_waterfall_build.restype = ctypes.c_int
+    lib.jt_waterfall_build.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.jt_waterfall_extend.restype = ctypes.c_int
+    lib.jt_waterfall_extend.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.jt_jf_sort_pack.restype = None
+    lib.jt_jf_sort_pack.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+
+
+def _load() -> ctypes.CDLL:
+    return _build.host_library(STEM, [SOURCE], _bind)
 
 
 def available() -> bool:
-    return _load() is not None
+    return _build.loads(_load)
 
 
-def mix32_batch(keys: np.ndarray) -> np.ndarray | None:
-    """murmur3-32 per key row (identical to ops.hashing.mix32); None when
-    the native library is unavailable."""
+def mix32_batch(keys: np.ndarray) -> np.ndarray:
+    """murmur3-32 per key row (identical to ops.hashing.mix32)."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     n, W = keys.shape
     out = np.empty(n, np.uint32)
@@ -116,10 +91,8 @@ def mix32_batch(keys: np.ndarray) -> np.ndarray | None:
 
 def jf_sort_order(keys: np.ndarray, pos: np.ndarray, kb: int,
                   pos_bits: int) -> np.ndarray | None:
-    """Stable order by (pos, key MSB-first); None when unavailable."""
+    """Stable order by (pos, key MSB-first); None at 2^32 rows or more."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     pos = np.ascontiguousarray(pos, dtype=np.uint64)
     n, W = keys.shape
@@ -138,14 +111,14 @@ def jf_sort_pack(keys: np.ndarray, counts: np.ndarray, pos: np.ndarray | None,
                  kb: int, counter_len: int, pos_bits: int, k: int,
                  identity_lsize: int = -1) -> np.ndarray | None:
     """(pos, key)-sorted packed .jf record section as a uint8 array (write
-    it with f.write(memoryview(..)) — no extra copy); None when unavailable.
+    it with f.write(memoryview(..)) — no extra copy); None for an input it
+    does not take (2^32 rows or more, identity_lsize past what the identity
+    path takes, no pos without it).
 
     identity_lsize >= 0: identity-matrix fast path — the kernel derives the
     sort order from the key alone (pos may be None; requires 2k <= 64).
     Otherwise pos supplies the hash positions (pos_bits wide)."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     counts = np.ascontiguousarray(counts, dtype=np.uint64)
     n, W = keys.shape
@@ -179,11 +152,8 @@ def merge_runs_multi(streams):
     Returns (h, keys, counts) of the merged distinct set in (h, key) order,
     counts summed with the uint32 saturation clamp — the host analog of
     jellyfish's merge_files k-way heap (jf:jellyfish/merge_files.cc:45-101).
-    None when the native library is unavailable.
     """
     lib = _load()
-    if lib is None:
-        return None
     streams = [
         (np.ascontiguousarray(h, np.uint32),
          np.ascontiguousarray(k, np.uint32),
@@ -214,14 +184,11 @@ def merge_runs_multi(streams):
 
 
 def waterfall_build(keys, counts, h, sw: int, n_buckets: int,
-                    pad_buckets: int, tab) -> bool | None:
+                    pad_buckets: int, tab) -> bool:
     """Place a (mix32, key)-ascending distinct record stream into the
     zeroed bucketed table `tab` ((n_buckets+pad)*64 uint32, C-contiguous).
-    True on success, False on pad overflow (retry with a bigger table),
-    None when the native library is unavailable."""
+    True on success, False on pad overflow (retry with a bigger table)."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     counts = np.ascontiguousarray(counts, dtype=np.uint32)
     h = np.ascontiguousarray(h, dtype=np.uint32)
@@ -238,11 +205,8 @@ def waterfall_build(keys, counts, h, sw: int, n_buckets: int,
 def waterfall_extend(keys, counts, h, sw: int, n_buckets: int,
                      pad_buckets: int, tab, last_slot: int):
     """Incremental waterfall_build: returns the new last_slot on success,
-    -1 on pad overflow, None when the native library is unavailable.
-    Slices pushed in run order build bit-identically to one-shot."""
+    -1 on pad overflow. Slices pushed in run order build bit-identically to one-shot."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     counts = np.ascontiguousarray(counts, dtype=np.uint32)
     h = np.ascontiguousarray(h, dtype=np.uint32)
@@ -259,11 +223,8 @@ def waterfall_extend(keys, counts, h, sw: int, n_buckets: int,
 
 def sort_run_records(keys, counts, kb: int):
     """(keys u32 [N,W], counts u64 [N]) -> (keys, counts32, h) sorted by
-    (mix32, key) ascending, in one native struct-radix pass. None when the
-    native library is unavailable."""
+    (mix32, key) ascending, in one native struct-radix pass."""
     lib = _load()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     counts = np.ascontiguousarray(counts, dtype=np.uint64)
     n, W = keys.shape

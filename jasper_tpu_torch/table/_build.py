@@ -1,13 +1,18 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc + ctypes,
-and the one build policy of every library of csrc/ (``compile_shared``).
+"""Build and load the port's native libraries with ctypes: the CUDA kernels
+(csrc/*.cu, nvcc, ``load``) and the host libraries (``host_library``, the
+host's C++ compiler): the FASTA/FASTQ parser (csrc/fastx_host.cc,
+io/native.py), the .jf sort/pack kernels (native/jt_jf.cc, io/native_jf.py)
+and the host-table queries (native/jt_table.cc, table/native_table.py).
 
-The sources compile at first use into ``jasper_tpu_torch/build/``, one shared
-library per hash of the sources and flags (``hashed_path``), with a plain C
-interface (no PyTorch headers: a build takes seconds, not minutes). Each
-source compiles in its own compiler process, all started together, and one
-more links them. A missing compiler or a failed build raises with what the
-compiler printed; nothing falls back. io/native.py builds the host parser
-(csrc/fastx_host.cc) the same way with the host's C++ compiler.
+Every library compiles at first use into ``jasper_tpu_torch/build/``, one
+shared library per hash of its sources and flags (``hashed_path``; a host
+library's also of this CPU's feature flags, for ``-march=native``), with a
+plain C interface (no PyTorch headers: a build takes seconds, not minutes).
+Sources are read where they are and never written. Each source compiles in
+its own compiler process, all started together, and one more links them
+(``compile_shared``). A missing compiler or a failed build raises with what
+the compiler printed, and a host library raises the same again on every later
+load; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,15 +28,21 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
+# jasper_tpu's C++ sources, which the port's host libraries are built from too
+NATIVE = os.path.join(os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-Wall", "-Wextra"]
 
 _lib = None
 _lock = threading.Lock()
 # what the last build printed (ptxas register / spill report) and took
 build_log = ""
 build_seconds = 0.0
+# each host library loaded so far, or why it could not be, by stem
+_host_libs: dict[str, ctypes.CDLL | Exception] = {}
+_host_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -112,6 +123,74 @@ def compile_shared(so: str, compiler: str, flags: list[str], sources: list[str])
             if os.path.exists(leftover):
                 os.remove(leftover)
     return log
+
+
+def _cxx() -> str:
+    found = shutil.which("g++") or shutil.which("c++")
+    if found is None:
+        raise RuntimeError("no C++ compiler (g++, c++) on PATH: the port's host "
+                           "libraries cannot be built")
+    return found
+
+
+def _cpu_flags() -> bytes:
+    """This CPU's feature flags (what ``-march=native`` compiles for)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return b""
+
+
+def build_host_library(stem: str, sources: list[str], bind,
+                       flags: list[str] = CXX_FLAGS) -> ctypes.CDLL:
+    """Build ``sources`` with ``flags`` into BUILD_DIR (unless built for
+    them and this CPU) and load the library, ``bind`` setting its entries'
+    argument types; raises with the compiler's output."""
+    so = hashed_path(stem, flags, sources, _cpu_flags())
+    if not os.path.exists(so):
+        compile_shared(so, _cxx(), flags, sources)
+    lib = ctypes.CDLL(so)
+    bind(lib)
+    return lib
+
+
+def host_library(stem: str, sources: list[str], bind) -> ctypes.CDLL:
+    """The host library ``stem`` built with CXX_FLAGS, loaded once; raises
+    why it cannot be, and raises the same again on every later call."""
+    got = _host_libs.get(stem)
+    if got is None:
+        with _host_lock:
+            got = _host_libs.get(stem)
+            if got is None:
+                try:
+                    got = build_host_library(stem, sources, bind)
+                except (OSError, RuntimeError) as e:
+                    got = e
+                _host_libs[stem] = got
+    if isinstance(got, Exception):
+        raise got
+    return got
+
+
+def host_error(stem: str) -> Exception | None:
+    """Why the host library ``stem`` could not be loaded (None until a load
+    failed)."""
+    got = _host_libs.get(stem)
+    return got if isinstance(got, Exception) else None
+
+
+def loads(load) -> bool:
+    """Whether ``load()`` returns rather than raises (a bridge's
+    ``available()``)."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def load() -> ctypes.CDLL:

@@ -53,7 +53,6 @@ class HostKmerTable:
         """Distinct records in any order (keys uint32 [N, W], counts
         uint64 [N], saturated to uint32) -> table: one native sort to
         (mix32, key) order, then from_sorted_run."""
-        _require_native()
         skeys, scounts, sh = native_jf.sort_run_records(keys, counts, key_bytes(k))
         return cls.from_sorted_run(k, skeys, scounts, load_factor, h=sh)
 
@@ -65,7 +64,6 @@ class HostKmerTable:
         DISTINCT key stream already sorted by (mix32(key), key) ascending,
         as jasper_tpu's from_sorted_run does; the table doubles until no
         key lands past PAD_BUCKETS of its home."""
-        _require_native()
         sw = slot_words_for(words_per_kmer(k))
         S = ROW_U32 // sw
         N = keys.shape[0]
@@ -211,9 +209,3 @@ class HostKmerTable:
             axis=-1,
         )
         return keys, cnts[occ]
-
-
-def _require_native() -> None:
-    if not native_jf.available():
-        raise RuntimeError("the native .jf library (native/libjtjf.so) cannot "
-                           "be built or loaded; the port has no numpy fallback")

@@ -3,79 +3,57 @@
 jax-free copy of jasper_tpu/table/native_table.py:20-131 (that module
 cannot be imported without jax). The repair walk's string queries go
 through this library; unlike jasper_tpu's CountSource, the port has no
-silent pure-Python fallback (see polish.engine.CountSource).
+silent pure-Python fallback (see polish.engine.CountSource). The source
+compiles at first use through table/_build.py's ``host_library``
+(``jasper_tpu_torch/build/``; the source is read in place), and raises with
+the compiler's output when it cannot be built.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import threading
 
 import numpy as np
 
+from jasper_tpu_torch.table import _build
 from jasper_tpu_torch.table.layout import PAD_BUCKETS
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-)
-_SO_PATH = os.path.join(_NATIVE_DIR, "libjttable.so")
-
-_lib = None
-_lib_lock = threading.Lock()
+SOURCE = os.path.join(_build.NATIVE, "jt_table.cc")
+STEM = "libjt_table"
 
 
-def _load():
-    """Load libjttable.so, building it with ``make`` on first use; raises
-    when it cannot be built or loaded."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        if not os.path.exists(_SO_PATH):
-            r = subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "libjttable.so"],
-                capture_output=True, text=True, timeout=120,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"building {_SO_PATH} failed:\n{r.stdout}{r.stderr}")
-        lib = ctypes.CDLL(_SO_PATH)
-        lib.jt_query_str.restype = ctypes.c_uint32
-        lib.jt_query_str.argtypes = [
-            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
-        ]
-        lib.jt_query_substr_batch.restype = None
-        lib.jt_query_substr_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.jt_effective_key.restype = None
-        lib.jt_effective_key.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
-            ctypes.c_void_p,
-        ]
-        _lib = lib
-        return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    """Argument types of the library's entries."""
+    lib.jt_query_str.restype = ctypes.c_uint32
+    lib.jt_query_str.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.jt_query_substr_batch.restype = None
+    lib.jt_query_substr_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.jt_effective_key.restype = None
+    lib.jt_effective_key.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_void_p,
+    ]
+
+
+def _load() -> ctypes.CDLL:
+    return _build.host_library(STEM, [SOURCE], _bind)
 
 
 def available() -> bool:
-    """Whether libjttable.so loads, building it with ``make`` on first use
-    (jasper_tpu's available()). jasper_tpu's callers take a pure-Python
-    path when it is False; the port has none, so False means the port's
-    host queries (the repair walk's CountSource, the host table's string
-    lookups) cannot run here and raise."""
-    try:
-        _load()
-    except (OSError, RuntimeError, subprocess.SubprocessError):
-        return False
-    return True
+    """Whether the library builds and loads (jasper_tpu's available()).
+    jasper_tpu's callers take a pure-Python path when it is False; the port
+    has none, so False means the port's host queries (the repair walk's
+    CountSource, the host table's string lookups) cannot run here and
+    raise."""
+    return _build.loads(_load)
 
 
 class NativeTableQuery:

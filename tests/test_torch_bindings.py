@@ -5,6 +5,8 @@ ReadMerFile's order on binary and text files, HashCounter.items, HashSet and
 StringMers. Both modules are imported by their paths; the port's package
 registers ``dna_jellyfish`` only where no module of that name is loaded."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import importlib
 import random
 import sys

@@ -4,6 +4,8 @@ gives jasper_tpu.bloom's results exactly on one seeded hash pair, at k=15,
 25 and 37: the values each insert returns, every counter afterwards, each
 check, and the .bc file's bytes."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import numpy as np
 import pytest
 

@@ -5,6 +5,8 @@ made from a numpy seed (N bases and read boundaries included), and against
 a numpy oracle. Runs are compared on their active lanes and n_active: dead
 lanes are padding whose garbage may differ."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

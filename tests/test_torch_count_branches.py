@@ -8,6 +8,8 @@ the port's classic branch, exactly, at k=15, 25 and 37 (jasper_tpu's patterns, t
 Also F3: bad JT_COUNT_PARTITIONS / JT_COUNT_GROUPS raise a ValueError that
 names the variable."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ the same byte for byte with the tracer on and off."""
 
 from __future__ import annotations
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import json
 import os
 

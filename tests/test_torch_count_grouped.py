@@ -3,6 +3,8 @@ JT_COUNT_PARTITIONS=4 in 1, 2 and 4 passes (JT_COUNT_GROUPS) gives records,
 host table bytes and device table bytes equal to jasper_tpu's on the same
 settings and to the port's classic branch, exactly, at k=15, 25 and 37."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import pytest
 
 from tests.test_torch_count import KS

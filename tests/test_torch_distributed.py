@@ -6,6 +6,8 @@ counts, writes the histogram and joins; each polishes its share of the
 batches) giving the single-process run's polished FASTA, fixes.csv and QV
 byte for byte, as jasper_tpu's tests/test_distributed.py holds jasper_tpu's."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import gzip
 import os
 import socket

@@ -6,14 +6,20 @@ the byte-at-a-time state machine."""
 
 from __future__ import annotations
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import gzip
 import os
 import random
 
+import numpy as np
 import pytest
 
 from jasper_tpu.io import native as jnative
 from jasper_tpu_torch.io import native as tnative
+from jasper_tpu_torch.io import native_jf as tnative_jf
+from jasper_tpu_torch.table import _build
+from jasper_tpu_torch.table import native_table as tnative_table
 from jasper_tpu_torch.utils import trace
 
 # jasper_tpu's parser is the reference; the port's must build, and a build
@@ -32,7 +38,9 @@ def build(request, monkeypatch):
     """The port's parser as built with CXX_FLAGS plus the build's flags."""
     extra = BUILDS[request.param]
     if extra:
-        monkeypatch.setattr(tnative, "_lib", tnative.build_library(tnative.CXX_FLAGS + extra))
+        lib = _build.build_host_library(tnative.STEM, [tnative.SOURCE], tnative._bind,
+                                        _build.CXX_FLAGS + extra)
+        monkeypatch.setitem(_build._host_libs, tnative.STEM, lib)
     return request.param
 
 
@@ -132,23 +140,88 @@ def test_general_bytes_counter(tmp_path, case, through_machine):
     assert (trace.counter("ingest.general_bytes") - general > 0) == through_machine
 
 
-def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
-    """A source that does not compile: the parser raises what the compiler
-    printed, available() is False, and the port's counting says why."""
+def _uses_parser(tmp_path):
+    """The parser's entry, then the port's counting over a FASTQ file."""
     from jasper_tpu_torch.io import fastx
-    from jasper_tpu_torch.table import _build
 
-    bad = tmp_path / "fastx_host.cc"
-    bad.write_text("int jt_host_parser_new( {\n")
-    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(tnative, "SOURCE", str(bad))
-    monkeypatch.setattr(tnative, "_lib", None)
-    monkeypatch.setattr(tnative, "load_error", None)
-    with pytest.raises(RuntimeError, match=r"failed \(.*fastx_host\.cc\):\n.*error"):
-        tnative.NativeParser()
-    assert not tnative.available()
     reads = tmp_path / "reads.fq"
     reads.write_bytes(CASES["fastq"])
-    with pytest.raises(RuntimeError, match="(?s)library unavailable: .*failed.*error"):
-        list(fastx.stream_codes([str(reads)], 15, 1 << 10, use_native=True))
+    yield tnative.NativeParser
+    yield lambda: list(fastx.stream_codes([str(reads)], 15, 1 << 10, use_native=True))
+
+
+def _uses_jf(tmp_path):
+    """The .jf library's entry, then its users: the .jf writer, the host
+    merge of level runs and the host table's build."""
+    from jasper_tpu_torch.count import counter
+    from jasper_tpu_torch.io import jf
+    from jasper_tpu_torch.table.host_table import HostKmerTable
+
+    keys = np.arange(12, dtype=np.uint32).reshape(4, 3)  # k = 37: 3 words
+    counts = np.ones(4, np.uint64)
+    s = (np.zeros(1, np.uint32), np.zeros((1, 1), np.uint32), np.ones(1, np.uint32))
+    yield lambda: tnative_jf.mix32_batch(keys)
+    yield lambda: jf.write_jf(str(tmp_path / "out.jf"), 37, keys, counts)
+    yield lambda: counter.merge_host_streams([s, s])
+    yield lambda: HostKmerTable.from_records(37, keys, counts)
+
+
+def _uses_table(tmp_path):
+    """The table library's query, then the repair walk's count source."""
+    from jasper_tpu_torch.polish.engine import CountSource
+    from jasper_tpu_torch.table.host_table import HostKmerTable
+
+    yield lambda: tnative_table.NativeTableQuery(HostKmerTable.empty(25, 64))
+    yield lambda: CountSource(HostKmerTable.empty(25, 64))
+
+
+# each host library of the port: its bridge, and the calls that need it
+LIBRARIES = {"parser": (tnative, _uses_parser), "jf": (tnative_jf, _uses_jf),
+             "table": (tnative_table, _uses_table)}
+
+
+@pytest.mark.parametrize("library", sorted(LIBRARIES))
+def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path, library):
+    """A source that does not compile: the library's first use raises what
+    the compiler printed, every later use raises the same error,
+    available() is False, nothing falls back, and the build leaves nothing
+    behind."""
+    mod, uses = LIBRARIES[library]
+    bad = tmp_path / os.path.basename(mod.SOURCE)
+    bad.write_text("int jt_broken( {\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_host_libs", {})
+    monkeypatch.setattr(mod, "SOURCE", str(bad))
+    compiler = rf"(?s)failed \(.*{bad.name.replace('.', '[.]')}\):\n.*error"
+    first, *users = uses(tmp_path)
+    with pytest.raises(RuntimeError, match=compiler) as raised:
+        first()
+    with pytest.raises(RuntimeError) as again:
+        first()
+    assert again.value is raised.value
+    assert not mod.available()
+    for use in users:
+        with pytest.raises(RuntimeError, match=compiler) as why:
+            use()
+        if library == "parser":  # the count says why it cannot parse
+            assert "library unavailable" in str(why.value)
     assert os.listdir(tmp_path / "build") == []
+
+
+def test_host_libraries_build_outside_native(monkeypatch, tmp_path):
+    """Building and loading the port's three host libraries reads the
+    sources of native/ in place and writes nothing there: every library
+    lands in the build directory, and native/ keeps the same files."""
+    from jasper_tpu.io import native_jf as jnative_jf
+    from jasper_tpu.table import native_table as jnative_table
+
+    native = _build.NATIVE
+    # jasper_tpu's own libraries are built there (by its make) beforehand
+    assert jnative.available() and jnative_jf.available() and jnative_table.available()
+    before = sorted(os.listdir(native))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_host_libs", {})
+    libs = [mod._load() for mod, _ in LIBRARIES.values()]
+    assert sorted(os.listdir(native)) == before
+    assert sorted(os.path.dirname(lib._name) for lib in libs) == [str(tmp_path / "build")] * 3
+    assert len(os.listdir(tmp_path / "build")) == 3

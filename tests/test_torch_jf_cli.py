@@ -13,6 +13,8 @@ runs drains in step (PENDING_DEPTH 0), the order the port's ladder takes.
 Bloom hash pairs are drawn from numpy.random.default_rng without a seed on
 both sides; the tests patch it to a seeded factory around each call."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import io
 import json
 import os

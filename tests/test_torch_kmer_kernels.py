@@ -23,6 +23,8 @@ the funnel shifts' definitions, the reverse complement by two-bit-group
 reversal, the 2k-bit compare, the pad lanes and the fused filter; at k =
 1-64, on lengths that straddle tile borders and with bad runs across them."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import ctypes
 import os
 import re

@@ -3,6 +3,8 @@ jasper_tpu_torch's insert_kmers, table_stats, DeviceKmerTable, home_of with
 owner_bits and entry() against jasper_tpu's, exactly (table bytes,
 n_pending, placed and the round count), at k=15, 25 and 37."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import functools
 
 import jax

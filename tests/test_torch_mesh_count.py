@@ -10,6 +10,8 @@ jasper_tpu's mesh ladders resolve their active counts through a queue;
 the tests drain it in step (PENDING_DEPTH 0), the order the port's ladders
 take, so that the levels and the eviction points are the same."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax
 import numpy as np
 import pytest

@@ -8,6 +8,8 @@ insert, the tools, and the multi-device paths (``dryrun_multichip``: the sharded
 table, its scanner, mesh counting; the process group) on the CPU end to
 end."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import os
 import subprocess
 import sys

@@ -1,6 +1,8 @@
 """Port parity, hashing and extraction: jasper_tpu_torch.ops == jasper_tpu.ops
 exactly (integer results, tolerance 0), on inputs made from a numpy seed."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

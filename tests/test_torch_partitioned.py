@@ -6,6 +6,8 @@ code chunks and reads made from a numpy seed. Runs are compared on their
 active lanes, n_active and lane counts: dead lanes are padding whose
 garbage may differ."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,10 +192,15 @@ def test_finish_runs_to_host_sums_evictions_saturating(tmp_path, monkeypatch):
     assert not tacc.levels
 
 
-def test_host_merge_needs_the_native_library(monkeypatch):
+def test_host_merge_needs_the_native_library(monkeypatch, tmp_path):
     from jasper_tpu_torch.io import native_jf
+    from jasper_tpu_torch.table import _build
 
     s = (np.zeros(1, np.uint32), np.zeros((1, 1), np.uint32), np.ones(1, np.uint32))
-    monkeypatch.setattr(native_jf, "available", lambda: False)
-    with pytest.raises(RuntimeError, match="no numpy fallback"):
+    bad = tmp_path / "jt_jf.cc"
+    bad.write_text("long jt_merge_runs_multi( {\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_host_libs", {})
+    monkeypatch.setattr(native_jf, "SOURCE", str(bad))
+    with pytest.raises(RuntimeError, match=r"(?s)failed \(.*jt_jf[.]cc\):\n.*error"):
         tcounter.merge_host_streams([s, s])

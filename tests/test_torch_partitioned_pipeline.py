@@ -7,6 +7,8 @@ the polished FASTA, the fixes CSV, the histogram, the threshold, the .jf and
 the QV strings. A merged run too large for the card's build share leaves
 the table to the scanner's upload, with the same outputs."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import pytest
 
 from jasper_tpu.pipeline.driver import run_pipeline as jrun_pipeline

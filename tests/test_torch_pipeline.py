@@ -5,6 +5,8 @@ fixes CSV, the histogram, the threshold, the .jf and the QV strings. Also the
 -j path (histogram from the table's counts column, not ROADMAP F1's
 slot-interleaved read), the CPU worker fan-out, reruns and the CLI's errors."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import gzip
 import os
 import subprocess

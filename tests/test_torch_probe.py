@@ -3,6 +3,8 @@ Pallas probe (interpret mode) and kmer_table.lookup_kmers, exactly
 (tolerance 0), on tables at the fast load, dense tables whose chains spill
 into the pad rows, and a table with no empty slot at all."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ driven by jasper_tpu's DevicePolishEngine on the same .jf, at k=25 and
 k=37: the fixed FASTA, every per-iteration fix CSV and both
 qValCalcHelper.csv files."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import os
 
 import numpy as np

@@ -17,6 +17,8 @@ in-tile totals, the look-back and the cross-tile continuations. Each is
 held to its plain twin at tile sizes that split equal keys, and a long
 run, across several tiles and more than one look-back window."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

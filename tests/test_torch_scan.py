@@ -4,6 +4,8 @@ exactly, at k=25 and k=37. The engine is compared pass by pass on the input
 classes of test_device_engine.py, and on a dense draft with every kind of
 repair."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

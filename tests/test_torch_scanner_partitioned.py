@@ -6,6 +6,8 @@ per pass, whole counts past 65535 (ROADMAP F2), the tile-boundary
 relative drop at threshold 0 (ROADMAP F7), and run_pipeline forced
 partitioned on -r and -j. Exact everywhere (tolerance 0)."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,8 @@ modules give jasper_tpu's results exactly, at k=25 and k=37: the repair
 walk (PolishEngine.run_pass with the port's CountSource), the .jf writers
 and readers, stream_codes, the driver's joins and the QV arithmetic."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import ast
 import dataclasses
 import gzip
@@ -235,15 +237,16 @@ def test_run_pass_matches_jasper_tpu(walk, case, monkeypatch):
         assert got["c"] == (rep if case == "repeat_gap" else genome)
 
 
-def test_count_source_needs_the_native_library(monkeypatch):
-    from jasper_tpu_torch.table import native_table
+def test_count_source_needs_the_native_library(monkeypatch, tmp_path):
+    from jasper_tpu_torch.table import _build, native_table
 
-    def missing():
-        raise RuntimeError("building native/libjttable.so failed")
-
-    monkeypatch.setattr(native_table, "_load", missing)
+    bad = tmp_path / "jt_table.cc"
+    bad.write_text("unsigned jt_query_str( {\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_host_libs", {})
+    monkeypatch.setattr(native_table, "SOURCE", str(bad))
     tab = np.zeros((33, 64), np.uint32)
-    with pytest.raises(RuntimeError, match="libjttable"):
+    with pytest.raises(RuntimeError, match=r"(?s)failed \(.*jt_table[.]cc\):\n.*error"):
         CountSource(HostKmerTable(25, tab))
 
 

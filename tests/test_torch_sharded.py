@@ -7,6 +7,8 @@ lookup against jasper_tpu's XLA and Pallas (interpret mode) lookups; the
 regime choice over a grid of sizes; DeviceScanner over a data mesh; the
 multi-device dry run. Exact everywhere (tolerance 0), at k=25 and k=37."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,8 @@ negative, past the end or reversed), each followed by random reads (ints,
 negative ones and out of range too; slices with negative, out-of-range,
 empty, reversed and missing bounds), len() and the join."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import numpy as np
 import pytest
 

@@ -15,6 +15,8 @@ L = k-1 and L = 0 but raises for 0 < L < k-1 (slices of unequal length),
 and its chunk_to_run raises at every L < k; the port gives no windows and
 an empty run there, as its canonical_windows_fast does."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import os
 import subprocess
 import sys
@@ -43,6 +45,7 @@ from jasper_tpu_torch.ops import kmer as tkmer
 from jasper_tpu_torch.parallel.scanner import local_data_mesh
 from jasper_tpu_torch.polish.window import scan_window_tiled
 from jasper_tpu_torch.table import build as tbuild
+from jasper_tpu_torch.table import _build
 from jasper_tpu_torch.table import native_table as tnative_table
 from jasper_tpu_torch.table.kmer_table import (
     run_from_numpy,
@@ -408,10 +411,10 @@ def test_scan_window_tiled_matches(k, mesh):
 
 def test_native_available_matches(monkeypatch, tmp_path):
     assert tnative_table.available() is jnative_table.available() is True
-    # a library that cannot be built: False, not a raise
-    monkeypatch.setattr(tnative_table, "_lib", None)
-    monkeypatch.setattr(tnative_table, "_NATIVE_DIR", str(tmp_path))
-    monkeypatch.setattr(tnative_table, "_SO_PATH", str(tmp_path / "libjttable.so"))
+    # a library that cannot be built (its source is missing): False, not a raise
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_host_libs", {})
+    monkeypatch.setattr(tnative_table, "SOURCE", str(tmp_path / "jt_table.cc"))
     assert tnative_table.available() is False
 
 

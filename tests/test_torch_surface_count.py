@@ -11,6 +11,8 @@ from a numpy seed with N bases and low-quality bases. The 3-tuple form
 builds no table on the device on any branch, and each mode alone changes
 the port's records on every branch."""
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,8 @@ compared.
   row found every present key.
 """
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import json
 import os
 import re

@@ -6,6 +6,8 @@ a tiny run_pipeline on the CPU gives the stages' spans under one job."""
 
 from __future__ import annotations
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import gzip
 import json
 import threading

@@ -4,6 +4,8 @@ record made by hand: synthetic program spans, device events and jobs."""
 
 from __future__ import annotations
 
+from tests import torch_pool  # noqa: F401  (first: sizes torch's thread pool)
+
 import pytest
 
 from benchmark import harness, program_spans
